@@ -7,19 +7,29 @@ NVIDIA GPU.
 Phases; any failure exits non-zero, and no phase's failure is caught:
 
 1. Card and build: the card's name and power limit (nvidia-smi), the
-   torch and CUDA versions, and the nvcc build of ``csrc/analytics_kernels.cu``.
+   torch and CUDA versions, and the one nvcc build of every
+   ``src/repro_torch/csrc/*.cu``.
 2. Each CUDA kernel against its plain PyTorch version on the card over
    edge shapes, ops, dtypes and expression specs; int results must be
    equal, f32 min/max equal, f32 sums within ``F32_SUM_RTOL`` of the
-   segment's sum of |v| (atomics add in another order).  Each kernel is
-   also timed at the shape the main path gives it, beside its bound,
-   its plain version and, where one exists, one PyTorch library call.
+   segment's sum of |v| (atomics add in another order), the heat scan
+   equal bit for bit (``[heat]``).  Each kernel is also timed at the
+   shape its path gives it, beside its bound, its plain version and,
+   where one exists, one PyTorch library call; one ``heat_scores`` call
+   at 262,144 objects is split into its host and device parts.
 3. The main path at full size: a store of 16 partitions x 4,194,304
    rows x 4 int32 columns (1 GiB, made from torch.Generator seed 0) and
    queries (a)-(d) through ``Clovis.analytics()``; each result must
    equal the ``use_kernels=False`` (numpy reference) engine's exactly,
-   and every kernel must have launched.
-4. One JSON line of per-kernel numbers, then the contract's last line.
+   and every kernel must have launched.  Then ``[percip]``: query (a)
+   again after ``enable_percipience()`` (equal result, heat kernel
+   launched), and the percipience benchmark's traces over 1,024
+   objects, predictive against reactive, with the policy's heat held
+   against the numpy closed form.
+4. ``[stream]``: a continuous windowed query over 16,777,216 rows
+   pushed by 4 producers; every final window must equal the
+   ``use_kernels=False`` batch engine over the same rows.
+5. One JSON line of per-kernel numbers, then the contract's last line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -41,12 +51,22 @@ PARTS, ROWS, KEYS, WINDOW = 16, 4_194_304, 4096, 4096
 CHECK_ROWS = (1, 1023, 1025, ROWS)
 CHECK_SEGS = (1, 128, 4096, 60000)   # 60000: the global-atomic path
 OPS = ("sum", "count", "min", "max")
-SOURCE = "src/repro_torch/csrc/analytics_kernels.cu"
-KERNELS = {   # name -> TPU kernel it replaces (reference file:line)
-    "fused_filter_aggregate": "src/repro/analytics/kernels.py:447",
-    "segment_reduce": "src/repro/analytics/kernels.py:131",
-    "window_reduce": "src/repro/analytics/kernels.py:288",
+HEAT_SHAPES = ((1, 1), (24, 37), (7, 129), (64, 1000))   # (hist, nobj)
+HEAT_HIST, HEAT_OBJS = 64, 262_144   # extractor hist_len x tracked objects
+PERCIP_OBJS, PERCIP_BYTES, PERCIP_READS, SCAN_EVERY = 1024, 64 << 10, 2048, 16
+STREAM_ELEMS, STREAM_ROWS, STREAM_PRODUCERS = 4096, 4096, 4
+STREAM_WINDOW_S, STREAM_DELTA = 0.256, 262_144
+ANALYTICS_CU = "src/repro_torch/csrc/analytics_kernels.cu"
+KERNELS = {   # name -> (source, TPU kernel it replaces: reference file:line)
+    "fused_filter_aggregate": (ANALYTICS_CU,
+                               "src/repro/analytics/kernels.py:447"),
+    "segment_reduce": (ANALYTICS_CU, "src/repro/analytics/kernels.py:131"),
+    "window_reduce": (ANALYTICS_CU, "src/repro/analytics/kernels.py:288"),
+    "heat_scan": ("src/repro_torch/csrc/percipience_kernels.cu",
+                  "src/repro/percipience/heat.py:47"),
 }
+BATCH_KERNELS = ("fused_filter_aggregate", "segment_reduce",
+                 "window_reduce")
 
 
 def fail(msg: str):
@@ -226,6 +246,77 @@ def phase_kernels(torch, K, col, dev):
     return chk
 
 
+def heat_inputs(torch, gen, dev, hist, nobj, weights):
+    """(hist, nobj) decay factors in [0, 1] with exact 0s and 1s, and
+    weights: random with some all-zero rows, or all zero."""
+    a = torch.rand((hist, nobj), generator=gen, device=dev)
+    a[torch.rand((hist, nobj), generator=gen, device=dev) < 0.1] = 0.0
+    a[torch.rand((hist, nobj), generator=gen, device=dev) < 0.1] = 1.0
+    x = torch.rand((hist, nobj), generator=gen, device=dev) * 3
+    if weights == "zero":
+        x.zero_()
+    else:
+        x[torch.rand(hist, generator=gen, device=dev) < 0.2] = 0.0
+    return a, x
+
+
+def histories(torch, gen, dev, n, hist, now):
+    """Right-aligned access histories as FeatureExtractor.history_tensors
+    makes them (f64 epoch seconds, mask 1 on the newest k steps, k
+    uniform in [0, hist]), built on the card and copied to the host."""
+    k = torch.randint(0, hist + 1, (n, 1), generator=gen, device=dev)
+    mask = (torch.arange(hist, device=dev) >= hist - k).double()
+    gaps = torch.rand((n, hist), generator=gen, device=dev,
+                      dtype=torch.float64) * 30.0
+    age = gaps.flip(1).cumsum(1).flip(1)        # newest access is youngest
+    ts = (now - age) * mask
+    return ts.cpu().numpy(), mask.cpu().numpy()
+
+
+def phase_heat(torch, H, chk, dev):
+    """[heat] B4 against its plain version (bit for bit: both round the
+    multiply and the add separately), and heat_scores on the card
+    against the CPU and the numpy closed form."""
+    import numpy as np
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    for hist, nobj in HEAT_SHAPES + ((HEAT_HIST, HEAT_OBJS),):
+        for weights in ("random", "zero"):
+            a, x = heat_inputs(torch, gen, dev, hist, nobj, weights)
+            got = H.heat_scan(a, x, device=dev)
+            want = H.heat_scan_plain(a, x)
+            chk.cases["heat_scan"] += 1
+            err = float((got - want).abs().max())
+            chk.err["heat_scan"] = max(chk.err["heat_scan"], err)
+            if not torch.allclose(got, want, rtol=1e-6, atol=0.0):
+                fail(f"heat_scan hist={hist} nobj={nobj} {weights}: kernel "
+                     f"and plain differ (max abs error {err})")
+    now = 1.7e9
+    ts, mask = histories(torch, gen, dev, 5000, HEAT_HIST, now)
+    mask[:100] = 0.0                             # empty histories
+    ts[:100] = 0.0
+    w = np.random.default_rng(0).uniform(0.5, 4.0, ts.shape)
+    for weights in (None, w):
+        got = H.heat_scores(ts, mask, now, 60.0, weights=weights, device=dev)
+        cpu = H.heat_scores(ts, mask, now, 60.0, weights=weights,
+                            device="cpu")
+        ref = H.heat_scores_ref(ts, mask, now, 60.0, weights=weights)
+        if not (np.allclose(got, cpu, rtol=1e-6, atol=0.0)
+                and np.allclose(got, ref, rtol=1e-5, atol=1e-12)
+                and (got[:100] == 0.0).all()):
+            fail("heat_scores on the card disagrees with the CPU or the "
+                 "numpy closed form")
+    if H.heat_scores(ts[:0], mask[:0], now, device=dev).shape != (0,):
+        fail("heat_scores with no objects must return shape (0,)")
+    torch.cuda.synchronize()
+    log(f"[heat] kernel == plain on the card: {chk.cases['heat_scan']} "
+        f"cases over (hist, nobj) {list(HEAT_SHAPES)} and "
+        f"({HEAT_HIST}, {HEAT_OBJS}); max abs error "
+        f"{chk.err['heat_scan']}; heat_scores cuda == cpu == closed form "
+        f"(rtol 1e-5) on 5000 objects with 100 empty histories, weighted "
+        f"and not, and on 0 objects")
+
+
 # ---------------------------------------------------------------------------
 # timing at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -248,10 +339,11 @@ def device_ms(torch, fn, reps=10):
     return total / reps
 
 
-def phase_timing(torch, K, col, dev):
-    """Each kernel at the shape the main path gives it (one partition):
-    B1 as query (a)'s fused pass, B2 as query (c)'s histogram count, B3
-    as query (d)'s window max."""
+def phase_timing(torch, K, H, col, dev):
+    """Each kernel at the shape its path gives it: B1 as query (a)'s
+    fused pass, B2 as query (c)'s histogram count, B3 as query (d)'s
+    window max (one partition each), B4 as one heat refresh of 262,144
+    tracked objects."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
@@ -306,6 +398,15 @@ def phase_timing(torch, K, col, dev):
         library_ms=device_ms(torch, lambda: reading.unfold(
             0, WINDOW, WINDOW).amax(1)),
         shape=f"n={ROWS} window={WINDOW} max int32")
+
+    # B4: the heat scan over the extractor's hist_len x 262,144 objects;
+    # no one PyTorch call computes a first-order linear recurrence
+    a, x = heat_inputs(torch, gen, dev, HEAT_HIST, HEAT_OBJS, "random")
+    out["heat_scan"] = dict(
+        ms=device_ms(torch, lambda: H.heat_scan(a, x, device=dev)),
+        plain_ms=device_ms(torch, lambda: H.heat_scan_plain(a, x)),
+        bound_bytes=2 * 4 * HEAT_HIST * HEAT_OBJS + 4 * HEAT_OBJS,
+        library_ms=None, shape=f"hist={HEAT_HIST} nobj={HEAT_OBJS} f32")
     for name, r in out.items():
         r["bound_ms"] = r["bound_bytes"] / HBM_BYTES_PER_S * 1e3
         log(f"[timing] {name} ({r['shape']}): {r['ms']:.4f} ms/launch, "
@@ -314,6 +415,48 @@ def phase_timing(torch, K, col, dev):
             f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_bytes']} B at "
             f"{HBM_BYTES_PER_S:.3g} B/s)")
     return out
+
+
+def phase_heat_split(torch, H, dev):
+    """One heat_scores call at 262,144 objects x hist 64, then its steps
+    one by one on the host clock (synchronised): what the card waits
+    on."""
+    import numpy as np
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    now = 1.7e9
+    ts, mask = histories(torch, gen, dev, HEAT_OBJS, HEAT_HIST, now)
+    H.heat_scores(ts[:8], mask[:8], now, device=dev)        # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = H.heat_scores(ts, mask, now, 120.0, device=dev)
+    t1 = time.perf_counter()
+    lam = H.LN2 / 120.0
+    s0 = time.perf_counter()
+    at, xt = H._scan_inputs(ts, mask, lam, None)
+    s1 = time.perf_counter()
+    a_d = torch.from_numpy(at).to(dev)
+    x_d = torch.from_numpy(xt).to(dev)
+    torch.cuda.synchronize()
+    s2 = time.perf_counter()
+    h = H.heat_scan(a_d, x_d, device=dev)
+    torch.cuda.synchronize()
+    s3 = time.perf_counter()
+    split = h.cpu().numpy().astype(np.float64) * H._tail(ts, mask, now, lam)
+    s4 = time.perf_counter()
+    if not np.array_equal(split, whole):
+        fail("heat_scores split into its steps differs from one call")
+    if not np.allclose(whole, H.heat_scores_ref(ts, mask, now, 120.0),
+                       rtol=1e-5, atol=1e-12):
+        fail("heat_scores at full size disagrees with the closed form")
+    parts = {"f64_precompute_ms": (s1 - s0) * 1e3,
+             "host_to_device_ms": (s2 - s1) * 1e3,
+             "kernel_ms": (s3 - s2) * 1e3, "tail_ms": (s4 - s3) * 1e3}
+    log(f"[heat] heat_scores({HEAT_OBJS} objects x {HEAT_HIST}): one call "
+        f"{(t1 - t0) * 1e3:.3f} ms on the host clock; split "
+        f"{json.dumps({k: round(v, 3) for k, v in parts.items()})} "
+        f"(tail: device->host copy and the f64 decay to now); equal to "
+        f"the closed form (rtol 1e-5)")
 
 
 # ---------------------------------------------------------------------------
@@ -412,6 +555,50 @@ def event_times(torch, K, run):
             sum(s.elapsed_time(e) for s, e in ps) for n, ps in pairs.items()}
 
 
+def percip_query(torch, K, col, cl, engine, want):
+    """[percip] query (a) on the 1 GiB store after enable_percipience():
+    the first run's reads feed the extractor, the second's scheduling
+    and cost model score heat through B4.  Both must equal the result
+    without percipience exactly."""
+    K.reset_launch_counts()                     # [percip] starts here
+    _, prefetcher, policy = cl.enable_percipience()
+    refresh_ms = []
+    refresh = policy.refresh
+
+    def timed_refresh(now=None):
+        t0 = time.perf_counter()
+        out = refresh(now)
+        refresh_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    policy.refresh = timed_refresh
+    for run in (1, 2):
+        if run == 2:     # let the policy's heat cache (refresh_s) expire
+            time.sleep(max(0.0, policy.refresh_s - (time.time()
+                                                    - policy._heat_ts)))
+        before, n_refresh = K.LAUNCHES["heat_scan"], len(refresh_ms)
+        eng = engine()
+        t0 = time.perf_counter()
+        res = eng.run(queries(eng, col)["a_mean"])
+        wall = time.perf_counter() - t0
+        if not equal(res.value, want):
+            fail(f"query a_mean with percipience (run {run}) differs from "
+                 f"the result without it")
+        log(f"[percip] query a_mean run {run} after enable_percipience(): "
+            f"wall {wall:.3f} s, heat refresh "
+            f"{sum(refresh_ms[n_refresh:]):.3f} ms in "
+            f"{len(refresh_ms) - n_refresh} call(s), heat_scan launches "
+            f"{K.LAUNCHES['heat_scan'] - before}, tracked objects "
+            f"{len(policy._heat)}, placement "
+            f"{sorted(set(res.stats.decisions.values()))}; equal to the "
+            f"result without percipience")
+    prefetcher.drain()
+    prefetcher.shutdown()
+    log(f"[percip] prefetcher on the query path: "
+        f"{json.dumps(prefetcher.stats())}")
+    if K.LAUNCHES["heat_scan"] <= 0:
+        fail("heat_scan was not launched on the percipient query path")
+
+
 def phase_main_path(torch, K, col, Clovis, dev):
     root = ROOT / ".chip_smoke"
     shutil.rmtree(root, ignore_errors=True)
@@ -434,15 +621,15 @@ def phase_main_path(torch, K, col, Clovis, dev):
             wall = time.perf_counter() - t0
             results[name] = res
             per_query[name] = {k: K.LAUNCHES[k] - before[k]
-                               for k in KERNELS}
+                               for k in BATCH_KERNELS}
             log(f"[main] {name}: wall {wall:.3f} s (plan "
                 f"{res.stats.plan_s:.3f} exec {res.stats.exec_s:.3f} "
                 f"merge {res.stats.merge_s:.3f}) launches "
                 f"{per_query[name]} placement {sorted(set(res.stats.decisions.values()))}")
         launches = dict(K.LAUNCHES)             # ...and ends here
         log(f"[main] launches over queries (a)-(d): {launches}")
-        for k, n in launches.items():
-            if n <= 0:
+        for k in BATCH_KERNELS:
+            if launches[k] <= 0:
                 fail(f"kernel {k} was not launched on the main path")
 
         for name in results:
@@ -482,17 +669,221 @@ def phase_main_path(torch, K, col, Clovis, dev):
             f"(materialize {arr.nbytes} B) {(t1 - t0) * 1e3:.2f} ms; "
             f"query a fragment (numpy prep + copies + kernel) "
             f"{(t2 - t1) * 1e3:.2f} ms")
+        percip_query(torch, K, col, cl, engine, results["a_mean"].value)
         for eng in engines:
             eng.close()
         return launches, per_query
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-        # this store's T1 dirs only, named as core/tiers.py names them
-        # (Clovis keeps its tiers under root / "tiers")
-        tiers = str((root / "tiers").resolve())
-        tag = hashlib.sha1(tiers.encode()).hexdigest()[:12]
-        for p in Path("/dev/shm").glob(f"sage_{tag}_*"):
-            shutil.rmtree(p, ignore_errors=True)
+        remove_store(root)
+
+
+def remove_store(root: Path):
+    """Remove a store root and its T1 dirs, named as core/tiers.py names
+    them (Clovis keeps its tiers under root / "tiers"); no one else's."""
+    tiers = str((root / "tiers").resolve())
+    shutil.rmtree(root, ignore_errors=True)
+    tag = hashlib.sha1(tiers.encode()).hexdigest()[:12]
+    for p in Path("/dev/shm").glob(f"sage_{tag}_*"):
+        shutil.rmtree(p, ignore_errors=True)
+
+
+def percip_traces():
+    """benchmarks/bench_percipience.py's traces over PERCIP_OBJS objects:
+    sequential, strided (x7) and zipfian (p ~ 1/k^1.2, numpy seed 0)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    p = 1.0 / np.arange(1, PERCIP_OBJS + 1, dtype=np.float64) ** 1.2
+    p /= p.sum()
+    n = PERCIP_READS
+    return {"sequential": [i % PERCIP_OBJS for i in range(n)],
+            "strided": [(i * 7) % PERCIP_OBJS for i in range(n)],
+            "zipfian": [int(v) for v in rng.choice(PERCIP_OBJS, size=n,
+                                                   p=p)]}
+
+
+def phase_percip_store(torch, H, K, dev):
+    """[percip] the store path: each trace replayed on a fresh store of
+    1,024 objects of 64 KiB on T3, predictive (percipience, its policy
+    scoring an HsmDaemon scan every 16 reads) and reactive (the default
+    CountingScorer).  After each predictive replay the policy's heat at
+    a fixed ``now`` must equal the numpy closed form, and the kernel
+    route the plain route."""
+    import numpy as np
+    from repro_torch.core import Addb, Clovis, HsmDaemon, Layout
+    from repro_torch.core import layouts as lay
+    from repro_torch.core.tiers import T1_NVRAM, T2_FLASH, T3_DISK
+    base = ROOT / ".chip_smoke" / "percip"
+    out = {}
+    for trace_name, trace in percip_traces().items():
+        out[trace_name] = {}
+        for mode in ("reactive", "predictive"):
+            root = base / f"{trace_name}_{mode}"
+            remove_store(root)
+            try:
+                cl = Clovis(root, addb=Addb(), device=dev)
+                payload = bytes(PERCIP_BYTES)
+                for i in range(PERCIP_OBJS):
+                    cl.create(f"bench/{i}", block_size=4096,
+                              layout=Layout(lay.STRIPED, T3_DISK, 2))
+                    cl.put(f"bench/{i}", payload)
+                prefetcher = policy = None
+                if mode == "predictive":
+                    ex, prefetcher, policy = cl.enable_percipience(
+                        sync=True, half_life_s=60.0, byte_budget=16 << 20,
+                        top_k=3, min_confidence=0.05)
+                    daemon = HsmDaemon(cl.store, scorer=policy)
+                else:
+                    daemon = HsmDaemon(cl.store)
+                before = K.LAUNCHES["heat_scan"]
+                hits = 0
+                t0 = time.perf_counter()
+                for step, obj in enumerate(trace):
+                    oid = f"bench/{obj}"
+                    if cl.store.meta(oid).layout.tier in (T1_NVRAM,
+                                                          T2_FLASH):
+                        hits += 1
+                    cl.get(oid)
+                    if (step + 1) % SCAN_EVERY == 0:
+                        daemon.scan_once()
+                wall = time.perf_counter() - t0
+                r = {"hit_rate": hits / len(trace), "replay_s": wall,
+                     "heat_scan_launches":
+                         K.LAUNCHES["heat_scan"] - before}
+                if policy is not None:
+                    now = time.time()
+                    oids, ts, _, mask = ex.history_tensors()
+                    heat = policy.refresh(now)
+                    got = np.array([heat[o] for o in oids])
+                    ref = H.heat_scores_ref(ts, mask, now, 60.0)
+                    plain = H.heat_scores(ts, mask, now, 60.0, device="cpu")
+                    if not np.allclose(got, ref, rtol=1e-5, atol=1e-12):
+                        fail(f"[percip] {trace_name}: policy heat differs "
+                             f"from the closed form")
+                    if not np.allclose(got, plain, rtol=1e-6, atol=0.0):
+                        fail(f"[percip] {trace_name}: kernel route differs "
+                             f"from the plain route")
+                    r.update(tracked=len(oids), heat_max_rel_err=float(
+                        np.max(np.abs(got - ref) / np.maximum(ref, 1e-300))),
+                        kernel_vs_plain_max_abs=float(
+                            np.max(np.abs(got - plain))),
+                        prefetch=prefetcher.stats())
+                    prefetcher.shutdown()
+                out[trace_name][mode] = r
+                log(f"[percip] {trace_name} {mode}: {json.dumps(r)}")
+            finally:
+                remove_store(root)
+    log(f"[percip] fast-tier hit rate predictive vs reactive: " + ", ".join(
+        f"{t} {v['predictive']['hit_rate']:.4f} vs "
+        f"{v['reactive']['hit_rate']:.4f}" for t, v in out.items()))
+    return out
+
+
+class WindowRows:
+    """A drained-tap stand-in holding one window's rows: the batch
+    engine's ``from_stream`` reads ``partitions()``."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+    def partitions(self):
+        return {"instrument": self.rows}
+
+
+def phase_stream(torch, K, col, dev):
+    """[stream] a continuous query over 16,777,216 rows (4 int32 columns,
+    the analytics-tour table) pushed as 4,096 elements of 4,096 rows by
+    4 producers, element i at event time i ms, 0.256 s tumbling windows.
+    Every final window must equal the use_kernels=False batch engine
+    over the same rows; nothing may arrive late."""
+    import threading
+
+    import numpy as np
+    from repro_torch.analytics import EventWindow
+    from repro_torch.core import Addb, Clovis, StreamContext
+    n = STREAM_ELEMS * STREAM_ROWS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    tbl = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    for c, (lo, hi) in enumerate(((0, KEYS), (0, 100), (-500, 500))):
+        tbl[:, c] = torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+    tbl[:, 3] = torch.arange(n, device=dev, dtype=torch.int32) // (
+        n // STREAM_PRODUCERS)
+    rows = tbl.cpu().numpy()
+    del tbl
+    window = EventWindow(size_s=STREAM_WINDOW_S)
+    root = ROOT / ".chip_smoke" / "stream"
+    remove_store(root)
+    try:
+        cl = Clovis(root, addb=Addb(), device=dev)
+        eng = cl.analytics()
+        ref_eng = cl.analytics(use_kernels=False)
+        ctx = StreamContext(n_producers=STREAM_PRODUCERS)
+
+        def chain(e, src):
+            return e.from_stream(src).filter(col(1) >= 75).key_by(
+                col(0)).aggregate("sum", value=col(2))
+
+        def produce(p):
+            for i in range(p, STREAM_ELEMS, STREAM_PRODUCERS):
+                ctx.push(p, "instrument",
+                         rows[i * STREAM_ROWS:(i + 1) * STREAM_ROWS],
+                         event_ts=i * 1e-3)
+        K.reset_launch_counts()                 # [stream] starts here
+        t0 = time.perf_counter()
+        cq = eng.run_continuous(chain(eng, ctx), window,
+                                delta_rows=STREAM_DELTA)
+        threads = [threading.Thread(target=produce, args=(p,))
+                   for p in range(STREAM_PRODUCERS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        results = cq.close(drain_deadline_s=600.0)
+        wall = time.perf_counter() - t0
+        launches = {k: K.LAUNCHES[k] for k in BATCH_KERNELS}  # ends here
+        ctx.close()
+        stats = cq.stats
+        final = [r for r in results if r.final]
+        if stats["elements"] != STREAM_ELEMS or cq.late_count:
+            fail(f"[stream] {stats['elements']} elements consumed, "
+                 f"{cq.late_count} late")
+        if launches["segment_reduce"] <= 0:
+            fail("[stream] segment_reduce was not launched")
+        # the same rows, window by window, through the batch engine
+        members = {}
+        for i in range(STREAM_ELEMS):
+            for k in window.keys_for(i * 1e-3):
+                members.setdefault(k, []).append(i)
+        if len(final) != len(members) or len(results) != len(members):
+            fail(f"[stream] {len(final)} final windows of {len(results)}, "
+                 f"expected {len(members)}")
+        for r in final:
+            k = round(r.start / window.stride)
+            idx = members[k]
+            wrows = np.concatenate([rows[i * STREAM_ROWS:
+                                         (i + 1) * STREAM_ROWS]
+                                    for i in idx])
+            ref = ref_eng.run(chain(ref_eng, WindowRows(wrows))).value
+            if not equal(r.value, ref):
+                fail(f"[stream] window [{r.start}, {r.end}) differs from "
+                     f"the use_kernels=False batch engine")
+            if r.rows != int((wrows[:, 1] >= 75).sum()):
+                fail(f"[stream] window [{r.start}, {r.end}) counted "
+                     f"{r.rows} rows")
+        lat = sorted(r.emit_latency_s for r in final)
+        log(f"[stream] {n} rows ({rows.nbytes} B) in {STREAM_ELEMS} "
+            f"elements from {STREAM_PRODUCERS} producers: {len(final)} "
+            f"final windows in {wall:.3f} s = {n / wall:.1f} rows/s; "
+            f"emit latency median {lat[len(lat) // 2]:.6f} s, largest "
+            f"{lat[-1]:.6f} s; launches {json.dumps(launches)}; late 0; "
+            f"peak buffered rows {stats['peak_buffered_rows']}; every "
+            f"window equals the use_kernels=False batch engine (int32)")
+        eng.close()
+        ref_eng.close()
+        return launches
+    finally:
+        remove_store(root)
 
 
 def main() -> int:
@@ -506,24 +897,38 @@ def main() -> int:
     from repro_torch.analytics import kernels as K
     from repro_torch.analytics.exprs import col
     from repro_torch.core import Clovis
+    from repro_torch.percipience import heat as H
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     smi = phase_card_and_build(torch, _ext)
     chk = phase_kernels(torch, K, col, dev)
-    timing = phase_timing(torch, K, col, dev)
+    phase_heat(torch, H, chk, dev)
+    timing = phase_timing(torch, K, H, col, dev)
+    phase_heat_split(torch, H, dev)
     launches, per_query = phase_main_path(torch, K, col, Clovis, dev)
+    phase_percip_store(torch, H, K, dev)
+    # [percip] ends here: heat_scan launches of both percipience phases
+    launches["heat_scan"] = K.LAUNCHES["heat_scan"]
+    log(f"[percip] heat_scan launches over the [percip] phases: "
+        f"{launches['heat_scan']}")
+    if launches["heat_scan"] <= 0:
+        fail("heat_scan was not launched on the percipience path")
+    stream = phase_stream(torch, K, col, dev)
 
     rows = []
-    for name, replaces in KERNELS.items():
+    for name, (source, replaces) in KERNELS.items():
         t = timing[name]
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": chk.err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"],
         })
     log(f"[main] launches per query: {json.dumps(per_query)}")
+    log(f"[stream] launches: {json.dumps(stream)}")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)                          # nvidia-smi's "name, power.limit"
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,20 @@
 """Build and load the port's CUDA kernels on first use.
 
-``csrc/analytics_kernels.cu`` compiles with ``nvcc`` into a shared
+Every ``csrc/*.cu`` source compiles in one ``nvcc`` call into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds, and ``ninja`` is not needed), loaded with ``ctypes``, which
 releases the interpreter lock during each launch call.  The library
-lands in ``_build/`` beside this file, named by a hash of the source and
-flags, so an edited source never loads a stale build; a build goes to a
-temporary name and is renamed into place, so a concurrent process never
-loads half a file.
+lands in ``_build/`` beside this file, named by a hash of all the
+sources and the flags, so an edited source never loads a stale build; a
+build goes to a temporary name and is renamed into place, so a
+concurrent process never loads half a file.
 
 There is no fallback: a missing ``nvcc``, a failed build or a failed
 load raises.  Loading is serialised by a lock, because the analytics
 executor launches kernels from thread pools.
+
+``LAUNCHES`` counts the launches of each kernel in this process (plain
+versions are not counted); each wrapper adds one where it launches.
 """
 from __future__ import annotations
 
@@ -23,9 +26,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "analytics_kernels.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
@@ -37,18 +41,35 @@ build_seconds: Optional[float] = None   # wall time of the build (0 if cached)
 build_log: str = ""                     # nvcc/ptxas output of that build
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# C signatures of the launchers in SOURCE
+# C signatures of the launchers in SOURCES
 _SIGNATURES = {
     "sage_fused_aggregate": (_P, _I, _P, _P, _I, _I, _P, _I, _P, _I64,
                              _P, _P, _I, _I, _I, _P),
     "sage_segment_reduce": (_P, _P, _I64, _P, _I, _I, _I, _P),
     "sage_window_reduce": (_P, _I64, _I64, _I64, _P, _I, _I, _P),
+    "sage_heat_scan": (_P, _P, _I64, _I64, _P, _P),
     "sage_error_string": (_I,),
 }
 
+LAUNCHES: Dict[str, int] = {"fused_filter_aggregate": 0,
+                            "segment_reduce": 0, "window_reduce": 0,
+                            "heat_scan": 0}
+_launch_lock = threading.Lock()
+
+
+def reset_launch_counts():
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str):
+    with _launch_lock:
+        LAUNCHES[name] += 1
+
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing or the CUDA source did not compile or load."""
+    """nvcc is missing or the CUDA sources did not compile or load."""
 
 
 class KernelLaunchError(RuntimeError):
@@ -69,20 +90,24 @@ def _nvcc() -> str:
 
 
 def _build() -> ctypes.CDLL:
-    """Compile SOURCE unless its library exists, then load it."""
+    """Compile SOURCES unless their library exists, then load it."""
     global build_seconds, build_log
-    h = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{SOURCE.stem}-{h.hexdigest()[:16]}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    out = BUILD_DIR / f"sage_kernels-{h.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
+                               *map(str, SOURCES)],
+                              capture_output=True, text=True)
         build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise KernelBuildError(f"nvcc failed for {SOURCE.name} (exit "
+            names = ", ".join(s.name for s in SOURCES)
+            raise KernelBuildError(f"nvcc failed for {names} (exit "
                                    f"{proc.returncode}):\n{build_log}")
         os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0

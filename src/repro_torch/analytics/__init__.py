@@ -9,15 +9,22 @@ Architecture:
         ▼
     PhysicalPlan  = storage fragment ++ caller tail ++ merge
         │            ++ per-partition placement (cost.py: ship / fetch /
-        │  AnalyticsEngine.run()           cached, from tier models
-        ▼                                  and selectivity stats)
+        │  AnalyticsEngine.run()           cached, from tier models,
+        ▼                                  heat, selectivity stats)
     FunctionShipper  ── fragment per object, partials back ──▶ merge
+        (tier/heat-aware schedule via percipience; spill via Clovis;
+         shipped fragments piggyback StatsCatalog summaries)
 
 Aggregation hot paths run on the CUDA kernels of kernels.py (built on
 first use from ``repro_torch/csrc``) on a ``cuda`` device, on their
 plain PyTorch versions on ``cpu``, and on the numpy ``*_ref`` oracles
-with ``use_kernels=False``.  Continuous queries over live streams wait
-for the port's streaming slice.
+with ``use_kernels=False``.
+
+Live streams additionally run as *continuous queries*
+(streaming.py): ``from_stream(StreamContext)`` +
+``run_continuous(ds, EventWindow(...))`` gives incremental watermarked
+event-time windows emitting while the stream is live — see
+docs/streaming.md.
 
 Entry point: ``Clovis.analytics()`` or ``AnalyticsEngine(clovis)``.
 """
@@ -34,3 +41,7 @@ from repro_torch.analytics.kernels import (histogram,  # noqa: F401
                                            segment_reduce,
                                            segment_reduce_ref,
                                            window_reduce, window_reduce_ref)
+from repro_torch.analytics.streaming import (ContinuousQuery,  # noqa: F401
+                                             EventWindow, LateElement,
+                                             SessionWindow, WatermarkTracker,
+                                             WindowResult)

@@ -16,9 +16,11 @@ then places per partition with the cost model (cost.py).
               .aggregate("sum", value=col(1))
               .collect())
 
-Sources: ``engine.scan(container)`` (one partition per object) and
-``a.join(b, on=(lc, rc))`` (inner equi-join).  Stream sources wait for
-the port's streaming slice (ROADMAP queue A).
+Sources: ``engine.scan(container)`` (one partition per object),
+``engine.from_stream(tap_or_ctx)`` (a drained StreamTap batches one
+partition per stream id; a live StreamContext makes the chain a
+*continuous query* executed via ``engine.run_continuous`` — see
+docs/streaming.md), and ``a.join(b, on=(lc, rc))`` (inner equi-join).
 """
 from __future__ import annotations
 
@@ -33,6 +35,21 @@ from repro_torch.analytics.plan import (AGGS, Aggregate, Filter, KeyBy,
 @dataclass(frozen=True)
 class ContainerSource:
     container: str
+
+
+@dataclass(frozen=True)
+class StreamSource:
+    tap: object          # anything with .partitions() -> Dict[str, ndarray]
+
+
+@dataclass(frozen=True)
+class LiveStreamSource:
+    """A live StreamContext: the dataset is an *unbounded* element flow,
+    so the chain executes as a continuous query
+    (``engine.run_continuous``) with event-time windows and watermark
+    semantics — ``run()``/``collect()`` on it raise, there is no finite
+    batch result to return."""
+    ctx: object          # StreamContext (has .subscribe / .push)
 
 
 @dataclass(frozen=True)

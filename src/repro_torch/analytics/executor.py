@@ -46,14 +46,19 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch._ext import KernelBuildError, KernelLaunchError
 from repro_torch.analytics.cost import (CACHED, FETCH, SHIP, STATS_KEY,
                                         ComputeModel, CostContext, CostModel,
                                         NetworkModel, StatsCatalog,
                                         frag_cache_key)
-from repro_torch.analytics.dataset import ContainerSource, Dataset, JoinSource
+from repro_torch.analytics.dataset import (ContainerSource, Dataset,
+                                           JoinSource, LiveStreamSource,
+                                           StreamSource)
 from repro_torch.analytics.plan import (KernelCfg, PhysicalPlan, apply_ops,
                                         compile_fragment, merge_partials,
-                                        optimize, prunable_columns)
+                                        optimize, optimize_streaming,
+                                        prunable_columns)
+from repro_torch.analytics.streaming import ContinuousQuery
 from repro_torch.core import layouts as lay
 from repro_torch.core.function_shipping import FunctionShipper
 from repro_torch.core.hsm import recommend_tier
@@ -61,10 +66,6 @@ from repro_torch.core.tiers import T2_FLASH, T3_DISK, T4_ARCHIVE, TIER_ORDER
 
 _TIER_RANK = {t: i for i, t in enumerate(TIER_ORDER)}
 _SLOW_TIERS = (T3_DISK, T4_ARCHIVE)
-
-_STREAMING_SLICE = ("is not ported yet: core/streams.py, analytics/"
-                    "streaming.py and run_continuous are the next slice "
-                    "(ROADMAP queue A, item A3)")
 
 # distinguishes ADDB decision-trace tags across engines sharing one ADDB
 _ENGINE_SEQ = itertools.count(1)
@@ -172,9 +173,14 @@ class AnalyticsEngine:
         return Dataset(self, ContainerSource(container))
 
     def from_stream(self, tap) -> Dataset:
-        """Stream sources (drained StreamTaps and live StreamContexts)
-        wait for the port's streaming slice."""
-        raise NotImplementedError(f"from_stream {_STREAMING_SLICE}")
+        """Dataset over a stream source.  A StreamTap (or anything with
+        ``partitions()``) batches the drained rows, one partition per
+        stream id in sequence order.  A live StreamContext (anything
+        with ``subscribe``/``push``) makes the chain a *continuous
+        query*: execute it with ``run_continuous``, not ``run``."""
+        if hasattr(tap, "subscribe") and hasattr(tap, "push"):
+            return Dataset(self, LiveStreamSource(tap))
+        return Dataset(self, StreamSource(tap))
 
     def explain(self, ds: Dataset) -> str:
         src = ds.source
@@ -182,6 +188,12 @@ class AnalyticsEngine:
             head = f"scan({src.container})"
             oids = self._schedule(self.clovis.container(src.container))
             plan = self._make_plan(ds, oids)
+        elif isinstance(src, LiveStreamSource):
+            head = "from_stream(live)"
+            plan = optimize_streaming(ds.ops)
+        elif isinstance(src, StreamSource):
+            head = "from_stream"
+            plan = optimize(ds.ops, pushdown=False)
         else:
             head = f"join(on={src.on})"
             plan = optimize(ds.ops, pushdown=False)
@@ -208,12 +220,16 @@ class AnalyticsEngine:
     def _policy_map(self, oids: List[str], method: str) -> Dict[str, float]:
         """Query the percipience policy (clovis.percipience[2]) for a
         per-oid map; {} when percipience is absent or the policy errors
-        (prediction is advisory, never load-bearing)."""
+        (prediction is advisory, never load-bearing).  A heat kernel that
+        fails to build or launch raises: the port never hides a kernel
+        fault behind the advisory fallback."""
         percip = getattr(self.clovis, "percipience", None)
         if not percip:
             return {}
         try:
             return getattr(percip[2], method)(oids)
+        except (KernelBuildError, KernelLaunchError):
+            raise
         except Exception:
             return {}
 
@@ -329,8 +345,19 @@ class AnalyticsEngine:
     def run(self, ds: Dataset) -> QueryResult:
         t0 = time.perf_counter()
         stats = QueryStats(pushdown=self._can_push(ds))
+        if isinstance(ds.source, LiveStreamSource):
+            raise ValueError(
+                "dataset reads a live StreamContext — an unbounded flow "
+                "has no batch result; execute it with run_continuous() "
+                "(incremental watermarked windows), or drain through a "
+                "StreamTap for a batch query")
         if isinstance(ds.source, JoinSource):
             value = self._run_join(ds, stats)
+        elif isinstance(ds.source, StreamSource):
+            plan = optimize(ds.ops, pushdown=False)
+            stats.plan = plan.describe()
+            partials = self._run_stream(ds, stats)
+            value = merge_partials(plan, partials, self.kcfg)
         else:
             pin = self._pin_snapshot(ds.source.container)
             try:
@@ -356,12 +383,48 @@ class AnalyticsEngine:
         return QueryResult(value, stats)
 
     def run_continuous(self, ds: Dataset, window,
-                       **kw):
-        """Continuous queries over live streams wait for the port's
-        streaming slice."""
-        raise NotImplementedError(f"run_continuous {_STREAMING_SLICE}")
+                       **kw) -> ContinuousQuery:
+        """Execute a live-stream dataset as a continuous query:
+        incremental watermarked event-time windows emitting results
+        while the stream is still live (docs/streaming.md).
+
+        ``window`` is the window spec — an ``EventWindow`` (tumbling /
+        sliding, size / slide / allowed lateness) or a ``SessionWindow``
+        (gap windows whose extents are data-defined); remaining
+        keywords pass through to ContinuousQuery (``on_result``
+        callback, ``max_results`` bounded queue size, ``delta_rows``
+        incremental batch size, ``idle_timeout_s``, and
+        ``retraction=True`` for speculative emit + late-data
+        re-emission on fixed windows).
+        Closed-window partials combine through the FunctionShipper
+        partial-aggregate registry (scalars) and ``merge_partials``
+        (grouped) — the exact merge code batch queries use, so the two
+        modes agree by construction."""
+        if not isinstance(ds.source, LiveStreamSource):
+            raise ValueError(
+                "run_continuous needs a live stream source — build the "
+                "dataset with from_stream(StreamContext)")
+        splan = optimize_streaming(ds.ops)
+        with self._lock:
+            self._qid += 1
+            tag = f"{self._etag}/cq{self._qid}"
+        return ContinuousQuery(ds.source.ctx, splan, window,
+                               shipper=self.shipper, kcfg=self.kcfg,
+                               addb=self.clovis.addb, tag=tag, **kw)
 
     # -- partition execution -------------------------------------------
+
+    def _run_stream(self, ds: Dataset, stats: QueryStats) -> List[Any]:
+        parts = ds.source.tap.partitions()
+        out = []
+        for sid in sorted(parts):
+            arr = parts[sid]
+            stats.partitions += 1
+            stats.bytes_scanned += arr.nbytes
+            stats.bytes_moved += arr.nbytes      # already caller-side
+            stats.schedule.append(sid)
+            out.append(apply_ops(ds.ops, arr, self.kcfg))
+        return out
 
     def _run_container(self, ds: Dataset, plan: PhysicalPlan,
                        oids: List[str], stats: QueryStats) -> List[Any]:

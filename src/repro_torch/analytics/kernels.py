@@ -30,12 +30,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import json
-import threading
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+# launch counts live in _ext, shared by every kernel of the library
+from repro_torch._ext import (LAUNCHES, count_launch,  # noqa: F401
+                              reset_launch_counts)
 from repro_torch.analytics.exprs import _BINOPS
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -45,24 +47,6 @@ _SUBLANES = 8
 _TILE = _LANES * _SUBLANES
 _OP_CODE = {"sum": 0, "count": 1, "min": 2, "max": 3}
 _DT_CODE = {torch.int32: 0, torch.float32: 1}
-
-# launches of each CUDA kernel in this process (plain-version runs are
-# not counted); chip_smoke.py zeroes and reads them around the main path
-LAUNCHES: Dict[str, int] = {"fused_filter_aggregate": 0,
-                            "segment_reduce": 0, "window_reduce": 0}
-_launch_lock = threading.Lock()
-
-
-def reset_launch_counts():
-    with _launch_lock:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
-
-
-def _count_launch(name: str):
-    with _launch_lock:
-        LAUNCHES[name] += 1
-
 
 def kernel_mode(device: DeviceLike = None) -> str:
     """How a kernel call on ``device`` executes: ``cuda`` (the
@@ -431,7 +415,7 @@ def segment_reduce_tensor(values: torch.Tensor, ids: torch.Tensor,
             out.data_ptr(), n_segments, _DT_CODE[values.dtype],
             _OP_CODE[op], _stream(values))
     ext.check(lib, err, "segment_reduce")
-    _count_launch("segment_reduce")
+    count_launch("segment_reduce")
     return out
 
 
@@ -531,7 +515,7 @@ def window_reduce_tensor(values: torch.Tensor, window: int, slide: int,
             values.data_ptr(), window, slide, n_windows, out.data_ptr(),
             _DT_CODE[values.dtype], _OP_CODE[op], _stream(values))
     ext.check(lib, err, "window_reduce")
-    _count_launch("window_reduce")
+    count_launch("window_reduce")
     return out
 
 
@@ -686,7 +670,7 @@ def fused_filter_aggregate_tensor(cols: List[torch.Tensor], program: Program,
             cnt.data_ptr(), n_segments, _DT_CODE[out_dtype], _OP_CODE[op],
             _stream(ids))
     ext.check(lib, err, "fused_filter_aggregate")
-    _count_launch("fused_filter_aggregate")
+    count_launch("fused_filter_aggregate")
     return acc, cnt
 
 

@@ -4,7 +4,7 @@
 optimizer.
 
 A ``Dataset`` builds a linear chain of logical ops over a source
-(container scan or join).  The optimizer splits the chain
+(container scan, stream tap, or join).  The optimizer splits the chain
 into:
 
   * a **fragment** — the maximal pushable prefix (filters, projections,
@@ -204,6 +204,68 @@ def optimize(ops: Sequence[Op], *, pushdown: bool = True,
     if cost_ctx is not None and pushdown and plan.frag_spec:
         plan.decisions = cost_ctx.place(plan)
     return plan
+
+
+# ---------------------------------------------------------------------------
+# streaming (continuous-query) plans
+# ---------------------------------------------------------------------------
+
+@dataclass
+class StreamingPlan:
+    """The op chain of a continuous query, split for incremental
+    execution (analytics/streaming.py): ``row_ops`` run vectorised over
+    each small delta of buffered elements, ``key``/``agg`` describe the
+    per-window partial aggregate, and ``merge`` how a window's
+    accumulated partials combine at watermark-close — ``scalar``
+    partials flow through FunctionShipper's partial-aggregate registry,
+    ``group`` partials through ``merge_partials``, i.e. the *same*
+    merge code the batch engine uses."""
+    row_ops: List[Op]                # Filter/Select/MapRows delta prefix
+    key: Optional[KeyBy]
+    agg: Aggregate
+    merge: str                       # scalar | group
+
+    def describe(self) -> str:
+        lines = [f"  [delta] {type(op).__name__.lower()}"
+                 for op in self.row_ops]
+        if self.key is not None:
+            lines.append("  [delta] key_by")
+        lines.append(f"  [delta] partial {self.agg.agg}")
+        lines.append(f"  [watermark-close] {self.merge}({self.agg.agg})")
+        return "\n".join(lines)
+
+
+def optimize_streaming(ops: Sequence[Op]) -> StreamingPlan:
+    """Validate and split an op chain for continuous execution over a
+    live stream.  Continuous queries window by *event time* (the
+    EventWindow the caller passes to ``run_continuous``), so the
+    row-count ``window()`` op is rejected; a terminal aggregate is
+    required because an unbounded query with no reduction has no finite
+    per-window result to emit."""
+    ops = list(ops)
+    if not ops or not isinstance(ops[-1], Aggregate):
+        raise ValueError("continuous queries need a terminal aggregate — "
+                         "an unbounded stream has no finite row result; "
+                         "use StreamTap + run() for drained row queries")
+    agg = ops[-1]
+    if agg.agg == "histogram":
+        raise ValueError("histogram is not supported in continuous "
+                         "queries yet")
+    key: Optional[KeyBy] = None
+    row_ops: List[Op] = []
+    for op in ops[:-1]:
+        if isinstance(op, Window):
+            raise ValueError("window(n) counts rows — a batch construct; "
+                             "continuous queries window by event time "
+                             "(pass an EventWindow to run_continuous)")
+        if isinstance(op, Aggregate):
+            raise ValueError("aggregate must be the terminal op")
+        if isinstance(op, KeyBy):
+            key = op                 # Dataset enforces only-agg-after
+        else:
+            row_ops.append(op)
+    return StreamingPlan(row_ops, key, agg,
+                         "group" if key is not None else "scalar")
 
 
 # ---------------------------------------------------------------------------

@@ -15,10 +15,10 @@ for byte, so this port opens a store root ``repro`` wrote
 (``open_reference_store`` checks that it reads the same arrays).
 
 The stack carries a ``device`` (``cuda`` unless the caller asks for the
-CPU); the analytics engines it builds run their kernels there.
-Percipience, manifests, compaction and serving wait for later slices of
-the port: without them the engine behaves as on an unmanaged store with
-percipience off.
+CPU); the analytics engines it builds and the percipience loop
+(``enable_percipience``) run their kernels there.  Manifests, compaction
+and serving wait for later slices of the port: without them the engine
+behaves as on an unmanaged store.
 """
 from __future__ import annotations
 
@@ -158,6 +158,7 @@ class Clovis:
         self.store = ObjectStore(root / "store", self.pools, addb)
         self.addb = self.store.addb
         self._indices: Dict[str, ClovisIndex] = {}
+        self.percipience = None   # set by enable_percipience
         self._stats_catalog = None   # shared by analytics() engines
         self._lock = threading.RLock()
 
@@ -316,9 +317,21 @@ class Clovis:
     def migrate(self, oid: str, layout: lay.Layout):
         self.store.migrate(oid, layout)
 
+    def enable_percipience(self, **kw):
+        """Wire the percipience loop (feature extraction, prefetch,
+        learned placement) onto this stack, heat scoring on its
+        ``device``; see repro_torch.percipience.attach_percipience for
+        knobs.  Returns (extractor, prefetcher, policy); the tuple is
+        kept on ``self.percipience`` so downstream layers (analytics
+        scheduling, HSM eviction) can consult heat without
+        re-plumbing."""
+        from repro_torch.percipience import attach_percipience
+        self.percipience = attach_percipience(self, **kw)
+        return self.percipience
+
     def analytics(self, *, engine_cls=None, **kw) -> "AnalyticsEngine":
         """Entry point to the percipient analytics engine — declarative
-        pushdown dataflow queries over containers (see
+        pushdown dataflow queries over containers and streams (see
         repro_torch.analytics and docs/analytics.md), with kernels on
         this stack's device.  All
         engines created through this facade share one StatsCatalog, so

@@ -477,12 +477,11 @@ class ObjectStore:
                 if dev.failed:
                     continue
                 prefix = f"{meta.oid.replace('/', '__')}/v{version}/"
-                for key in dev.list_blocks():
-                    if key.startswith(prefix):
-                        try:
-                            dev.delete_block(key)
-                        except (IOError, OSError):
-                            pass
+                for key in dev.list_blocks(prefix):
+                    try:
+                        dev.delete_block(key)
+                    except (IOError, OSError):
+                        pass
 
     # ------------------------------------------------------------------
     # transactions / recovery

@@ -138,9 +138,15 @@ class TierDevice:
     def has_block(self, key: str) -> bool:
         return self._path(key).exists()
 
-    def list_blocks(self) -> List[str]:
-        return [str(p.relative_to(self.root))
-                for p in self.root.rglob("*") if p.is_file()]
+    def list_blocks(self, prefix: str = "") -> List[str]:
+        """Keys of the blocks on this device; with a ``prefix`` that ends
+        in "/" (an object version's directory) only that directory is
+        walked, so garbage collection of one version does not scan the
+        whole device."""
+        top = self.root / prefix if prefix.endswith("/") else self.root
+        return [key for key in (str(p.relative_to(self.root))
+                                for p in top.rglob("*") if p.is_file())
+                if key.startswith(prefix)]
 
     def wipe(self):
         shutil.rmtree(self.root, ignore_errors=True)

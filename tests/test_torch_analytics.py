@@ -150,11 +150,27 @@ def test_open_reference_store_rejects_a_different_array(stores, tmp_path):
 
 
 def test_stream_sources_wait_for_their_slice(stores):
+    """Their slice has landed: a drained tap is a batch source, a live
+    context runs only as a continuous query (tests/test_torch_streaming.py
+    holds both against the reference)."""
+    from repro_torch.analytics import EventWindow
+    from repro_torch.analytics.dataset import LiveStreamSource, StreamSource
+    from repro_torch.core import StreamContext, StreamTap
     _, _, _, pe, _ = stores
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pe.from_stream(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pe.run_continuous(None, None)
+    tap = StreamTap()
+    assert isinstance(pe.from_stream(tap).source, StreamSource)
+    with pytest.raises(ValueError, match="live stream"):
+        pe.run_continuous(pe.from_stream(tap).aggregate("count"),
+                          EventWindow(1.0))
+    ctx = StreamContext(n_producers=1)
+    try:
+        live = pe.from_stream(ctx).aggregate("count")
+        assert isinstance(live.source, LiveStreamSource)
+        cq = pe.run_continuous(live, EventWindow(1.0))
+        ctx.push(0, "s", np.array([1, 2]), event_ts=0.5)
+        assert [r.value for r in cq.close()] == [1]
+    finally:
+        ctx.close()
 
 
 BUILTIN_DATA = {

@@ -113,3 +113,58 @@ def test_host_api_on_cuda_matches_cpu(dev):
     np.testing.assert_array_equal(
         K.histogram(v, 32, (-500, 500), device=dev),
         K.histogram_ref(v, 32, (-500, 500)))
+
+
+# ---------------------------------------------------------------------------
+# heat scan (B4): built with --fmad=false, so kernel == plain bit for bit
+# ---------------------------------------------------------------------------
+
+HEAT_SHAPES = [(1, 1), (24, 37), (7, 129), (64, 1000), (64, 262_144)]
+
+
+@pytest.mark.parametrize("hist,nobj", HEAT_SHAPES)
+@pytest.mark.parametrize("weights", ["random", "zero"])
+def test_heat_kernel_matches_plain(dev, hist, nobj, weights):
+    from repro_torch import _ext
+    from repro_torch.percipience import heat_scan, heat_scan_plain
+    g = torch.Generator(device=dev)
+    g.manual_seed(hist * 7 + nobj)
+    a = torch.rand((hist, nobj), generator=g, device=dev)
+    a[torch.rand((hist, nobj), generator=g, device=dev) < 0.1] = 0.0
+    a[torch.rand((hist, nobj), generator=g, device=dev) < 0.1] = 1.0
+    x = torch.rand((hist, nobj), generator=g, device=dev) * 3
+    if weights == "zero":
+        x.zero_()
+    else:
+        x[torch.rand(hist, generator=g, device=dev) < 0.2] = 0.0
+    _ext.reset_launch_counts()
+    got = heat_scan(a, x, device=dev)
+    assert _ext.LAUNCHES["heat_scan"] == 1
+    want = heat_scan_plain(a, x)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+def test_heat_scores_on_cuda_equal_cpu(dev):
+    from repro_torch.percipience import heat_scores, heat_scores_ref
+    rng = np.random.default_rng(1)
+    n, hist, now = 3000, 64, 1.7e9
+    ts = np.sort(now - rng.uniform(0, 900, (n, hist)), axis=1)
+    mask = np.ones((n, hist))
+    for i in range(n):
+        k = int(rng.integers(0, hist + 1))
+        mask[i, :hist - k] = 0.0
+        ts[i, :hist - k] = 0.0
+    w = rng.uniform(0.5, 4.0, (n, hist))
+    for weights in (None, w):
+        got = heat_scores(ts, mask, now, 60.0, weights=weights, device=dev)
+        np.testing.assert_array_equal(
+            got, heat_scores(ts, mask, now, 60.0, weights=weights,
+                             device="cpu"))
+        np.testing.assert_allclose(
+            got, heat_scores_ref(ts, mask, now, 60.0, weights=weights),
+            rtol=1e-5, atol=1e-12)
+    assert heat_scores(np.zeros((0, 4)), np.zeros((0, 4)), now,
+                       device=dev).shape == (0,)
+    assert heat_scores(ts[:5], np.zeros((5, hist)), now,
+                       device=dev).tolist() == [0.0] * 5

@@ -49,14 +49,22 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("repro", "jaxlib")
                 or (m.startswith("jax") and sys.modules[m] is not None))
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env={**os.environ,
                               "PYTHONPATH": str(REPO / "src")},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 17     # every module imported
+    names = set(out.stdout.split())
+    assert len(names) >= 26                      # every module imported
+    assert names >= {"repro_torch.percipience", "repro_torch.percipience.heat",
+                     "repro_torch.percipience.advisor",
+                     "repro_torch.percipience.prefetcher",
+                     "repro_torch.percipience.telemetry",
+                     "repro_torch.core.streams",
+                     "repro_torch.core.storage_window",
+                     "repro_torch.analytics.streaming"}
 
 
 @pytest.fixture()
