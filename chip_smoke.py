@@ -29,7 +29,19 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
 4. ``[stream]``: a continuous windowed query over 16,777,216 rows
    pushed by 4 producers; every final window must equal the
    ``use_kernels=False`` batch engine over the same rows.
-5. One JSON line of per-kernel numbers, then the contract's last line.
+5. ``[model-kernels]`` (before the timing): B5 flash attention and B7
+   the RG-LRU scan against their plain versions at the serving shapes
+   and at edge shapes; B7 bit for bit, B5 within ``ATTN_RTOL`` of each
+   query row's largest |o|.  ``[serve]`` (last): recurrentgemma-9b at
+   full width (9,627,414,528 f32 parameters drawn on the card from
+   seed 0) serves 4 prompts of 4,000 tokens (numpy seed 0) and 32
+   greedy tokens through ``repro_torch.launch.serve.Server``; its
+   prefill must launch B5 12 and B7 26 times, its logits must agree
+   with the ``use_kernels=False`` path on the same weights at prefill
+   and at every decode step (within ``SERVE_LOGIT_RTOL`` of the step's
+   largest |logit|), and the token log must read back from Clovis; two
+   more decode steps run under torch.profiler (device busy share).
+6. One JSON line of per-kernel numbers, then the contract's last line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -56,7 +68,28 @@ HEAT_HIST, HEAT_OBJS = 64, 262_144   # extractor hist_len x tracked objects
 PERCIP_OBJS, PERCIP_BYTES, PERCIP_READS, SCAN_EVERY = 1024, 64 << 10, 2048, 16
 STREAM_ELEMS, STREAM_ROWS, STREAM_PRODUCERS = 4096, 4096, 4
 STREAM_WINDOW_S, STREAM_DELTA = 0.256, 262_144
+F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12            # H100 SXM dense TF32 tensor cores
+ATTN_RTOL = 1e-4               # B5 vs plain, relative to the row's max |o|
+SERVE_LOGIT_RTOL = 1e-3        # kernel vs plain path, of the step's max |logit|
+SERVE_ARCH, SERVE_PARAMS = "recurrentgemma-9b", 9_627_414_528
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4000, 32
+PROFILE_STEPS = 2              # decode steps traced after the comparison
+# (b, h, kv, sq, sk, hd, causal, window, softcap); the first is the
+# serving shape of recurrentgemma-9b's local-attention layers
+ATTN_CASES = ((4, 16, 1, 4000, 4000, 256, True, 2048, 0.0),
+              (1, 4, 4, 333, 333, 64, True, 0, 0.0),        # MHA
+              (2, 8, 2, 517, 517, 128, True, 100, 30.0),    # GQA
+              (1, 8, 1, 129, 129, 256, False, 0, 0.0),      # MQA
+              (2, 4, 2, 200, 200, 128, False, 50, 30.0),
+              (1, 4, 1, 45, 300, 64, False, 0, 0.0),        # sq < sk
+              (3, 6, 3, 1000, 1000, 64, True, 256, 30.0),
+              (1, 1, 1, 1, 1, 64, True, 0, 0.0))
+# (b, s, w, h0); the first two are the serving shape of the RG-LRU layers
+SCAN_CASES = ((4, 4000, 4096, True), (4, 4000, 4096, False),
+              (2, 1, 33, True), (3, 77, 100, False), (1, 4096, 31, True))
 ANALYTICS_CU = "src/repro_torch/csrc/analytics_kernels.cu"
+MODEL_CU = "src/repro_torch/csrc/model_kernels.cu"
 KERNELS = {   # name -> (source, TPU kernel it replaces: reference file:line)
     "fused_filter_aggregate": (ANALYTICS_CU,
                                "src/repro/analytics/kernels.py:447"),
@@ -64,7 +97,10 @@ KERNELS = {   # name -> (source, TPU kernel it replaces: reference file:line)
     "window_reduce": (ANALYTICS_CU, "src/repro/analytics/kernels.py:288"),
     "heat_scan": ("src/repro_torch/csrc/percipience_kernels.cu",
                   "src/repro/percipience/heat.py:47"),
+    "flash_attention": (MODEL_CU, "src/repro/kernels/flash_attention.py:36"),
+    "rglru_scan": (MODEL_CU, "src/repro/kernels/rglru_scan.py:29"),
 }
+MODEL_KERNELS = ("flash_attention", "rglru_scan")
 BATCH_KERNELS = ("fused_filter_aggregate", "segment_reduce",
                  "window_reduce")
 
@@ -96,7 +132,7 @@ def phase_card_and_build(torch, ext):
     log(f"[build] {time.perf_counter() - t0:.2f} s (nvcc "
         f"{ext.build_seconds:.2f} s)")
     for line in ext.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "Compiling entry", "spill")):
             log(f"[build] {line.strip()}")
     return smi
 
@@ -317,6 +353,73 @@ def phase_heat(torch, H, chk, dev):
         f"and not, and on 0 objects")
 
 
+def attn_inputs(torch, gen, dev, b, h, kv, sq, sk, hd):
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    return r(b, h, sq, hd), r(b, kv, sk, hd), r(b, kv, sk, hd)
+
+
+def scan_inputs(torch, gen, dev, b, s, w, with_h0):
+    """RG-LRU coefficients: a in [0, 1) with some exact 0s and 1s, x and
+    h0 normal."""
+    a = torch.rand((b, s, w), generator=gen, device=dev)
+    a[torch.rand((b, s, w), generator=gen, device=dev) < 0.01] = 0.0
+    a[torch.rand((b, s, w), generator=gen, device=dev) < 0.01] = 1.0
+    x = torch.randn((b, s, w), generator=gen, device=dev) * 0.2
+    h0 = (torch.randn((b, w), generator=gen, device=dev) if with_h0
+          else None)
+    return a, x, h0
+
+
+def phase_model_kernels(torch, KA, KR, chk, dev):
+    """[model-kernels] B5 and B7 against their plain versions on the
+    card: B7 bit for bit (both round the multiply and the add
+    separately), B5 within ATTN_RTOL of each query row's largest |o|
+    (f32 products summed in another order than the plain matmuls)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    worst_rel = 0.0
+    for b, h, kv, sq, sk, hd, causal, window, cap in ATTN_CASES:
+        q, k, v = attn_inputs(torch, gen, dev, b, h, kv, sq, sk, hd)
+        kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+                  softcap=cap)
+        got = KA.flash_attention_kernel(q, k, v, **kw)
+        want = KA.flash_attention_plain(q, k, v, **kw)
+        chk.cases["flash_attention"] += 1
+        what = (f"flash_attention b={b} h={h} kv={kv} sq={sq} sk={sk} "
+                f"hd={hd} causal={causal} window={window} softcap={cap}")
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            fail(f"{what}: shape {tuple(got.shape)} or non-finite output")
+        diff = (got - want).abs()
+        row = want.abs().amax(-1, keepdim=True)
+        chk.err["flash_attention"] = max(chk.err["flash_attention"],
+                                         float(diff.max()))
+        worst_rel = max(worst_rel, float((diff / row.clamp_min(
+            1e-30)).max()))
+        if not bool((diff <= ATTN_RTOL * row).all()):
+            fail(f"{what}: kernel and plain differ (max abs error "
+                 f"{float(diff.max())})")
+        del q, k, v, got, want, diff
+    for b, s_, w, with_h0 in SCAN_CASES:
+        a, x, h0 = scan_inputs(torch, gen, dev, b, s_, w, with_h0)
+        got = KR.rglru_scan(a, x, h0)
+        want = KR.rglru_scan_plain(a, x, h0)
+        chk.cases["rglru_scan"] += 1
+        err = float((got - want).abs().max())
+        chk.err["rglru_scan"] = max(chk.err["rglru_scan"], err)
+        if not torch.equal(got, want):
+            fail(f"rglru_scan b={b} s={s_} w={w} h0={with_h0}: kernel and "
+                 f"plain differ (max abs error {err})")
+    torch.cuda.synchronize()
+    log(f"[model-kernels] kernel == plain on the card: flash_attention "
+        f"{chk.cases['flash_attention']} cases (MHA/GQA/MQA, window 0 and "
+        f">0, softcap 0 and 30, causal and not, unaligned sq/sk, hd "
+        f"64/128/256), max abs error {chk.err['flash_attention']}, max "
+        f"error / row max |o| {worst_rel:.3e} (limit {ATTN_RTOL}); "
+        f"rglru_scan {chk.cases['rglru_scan']} cases bit for bit (with and "
+        f"without h0, s=1, w not a multiple of 32)")
+
+
 # ---------------------------------------------------------------------------
 # timing at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -339,11 +442,22 @@ def device_ms(torch, fn, reps=10):
     return total / reps
 
 
-def phase_timing(torch, K, H, col, dev):
+def attn_pairs(sq, sk, causal, window):
+    """(query, key) pairs the mask leaves visible, positions = indices."""
+    n = 0
+    for i in range(sq):
+        hi = min(sk, i + 1) if causal else sk
+        lo = max(0, i - window + 1) if window > 0 else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def phase_timing(torch, K, H, KA, KR, col, dev):
     """Each kernel at the shape its path gives it: B1 as query (a)'s
     fused pass, B2 as query (c)'s histogram count, B3 as query (d)'s
     window max (one partition each), B4 as one heat refresh of 262,144
-    tracked objects."""
+    tracked objects, B5 and B7 as one local-attention and one RG-LRU
+    layer of the [serve] prefill."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
@@ -407,13 +521,60 @@ def phase_timing(torch, K, H, col, dev):
         plain_ms=device_ms(torch, lambda: H.heat_scan_plain(a, x)),
         bound_bytes=2 * 4 * HEAT_HIST * HEAT_OBJS + 4 * HEAT_OBJS,
         library_ms=None, shape=f"hist={HEAT_HIST} nobj={HEAT_OBJS} f32")
+
+    # B5: one local-attention layer of the [serve] prefill; the yardstick
+    # is SDPA with the same boolean window-causal mask over K/V expanded
+    # to every head (the port never calls it)
+    import torch.nn.functional as F
+    b, h, kv, sq, sk, hd, causal, window, cap = ATTN_CASES[0]
+    q, k, v = attn_inputs(torch, gen, dev, b, h, kv, sq, sk, hd)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, softcap=cap)
+    qi = torch.arange(sq, device=dev)[:, None]
+    ki = torch.arange(sk, device=dev)[None, :]
+    mask = (ki <= qi) & (ki > qi - window)
+    k16, v16 = (t.expand(b, h, sk, hd).contiguous() for t in (k, v))
+    pairs = attn_pairs(sq, sk, causal, window)
+    flops = 4 * hd * pairs * b * h            # q.k and p.v, 2 each
+    out["flash_attention"] = dict(
+        ms=device_ms(torch, lambda: KA.flash_attention_kernel(q, k, v, **kw)),
+        plain_ms=device_ms(torch, lambda: KA.flash_attention_plain(
+            q, k, v, **kw)),
+        library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k16, v16, attn_mask=mask, scale=kw["scale"])),
+        bound_bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
+        bound_flops=flops, shape=f"b={b} h={h} kv={kv} s={sq} hd={hd} "
+        f"window={window} f32 ({pairs} visible pairs per head)")
+    del q, k, v, k16, v16, mask
+
+    # B7: one RG-LRU layer of the [serve] prefill (h0 from the cache); no
+    # one PyTorch call computes a linear recurrence
+    b, s_, w, with_h0 = SCAN_CASES[0]
+    a, x, h0 = scan_inputs(torch, gen, dev, b, s_, w, with_h0)
+    out["rglru_scan"] = dict(
+        ms=device_ms(torch, lambda: KR.rglru_scan(a, x, h0)),
+        plain_ms=device_ms(torch, lambda: KR.rglru_scan_plain(a, x, h0)),
+        library_ms=None, bound_bytes=4 * (3 * a.numel() + h0.numel()),
+        shape=f"b={b} s={s_} w={w} f32")
+    del a, x, h0
+
     for name, r in out.items():
-        r["bound_ms"] = r["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+        bytes_ms = r["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = r.get("bound_flops", 0) / F32_FLOPS * 1e3
+        r["bound_ms"] = max(bytes_ms, ops_ms)
+        r["bound_by"] = "operations" if ops_ms > bytes_ms else "bytes"
+        extra = ""
+        if "bound_flops" in r:
+            extra = (f"; {r['bound_flops']} f32 FLOP at {F32_FLOPS:.3g}/s "
+                     f"= {ops_ms:.4f} ms, at the TF32 tensor-core rate "
+                     f"{r['bound_flops'] / TF32_FLOPS * 1e3:.4f} ms, "
+                     f"achieved {r['bound_flops'] / r['ms'] / 1e9:.2f} "
+                     f"TFLOP/s")
         log(f"[timing] {name} ({r['shape']}): {r['ms']:.4f} ms/launch, "
             f"plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
-            f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_bytes']} B at "
-            f"{HBM_BYTES_PER_S:.3g} B/s)")
+            f" ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"({r['bound_bytes']} B at {HBM_BYTES_PER_S:.3g} B/s = "
+            f"{bytes_ms:.4f} ms{extra})")
     return out
 
 
@@ -886,6 +1047,199 @@ def phase_stream(torch, K, col, dev):
         remove_store(root)
 
 
+def kernel_event_times(torch, run):
+    """Run ``run()`` with CUDA events around every B5 and B7 wrapper call
+    the model layers make; returns (run's value, ms summed per kernel)."""
+    from repro_torch.models import attention as MA
+    from repro_torch.models import rglru as MR
+    targets = ((MA, "flash_attention"), (MR, "rglru_scan"))
+    saved = [getattr(mod, name) for mod, name in targets]
+    pairs = {name: [] for _, name in targets}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            val = fn(*a, **kw)
+            e.record()
+            pairs[name].append((s, e))
+            return val
+        return call
+    try:
+        for (mod, name), fn in zip(targets, saved):
+            setattr(mod, name, timed(name, fn))
+        value = run()
+    finally:
+        for (mod, name), fn in zip(targets, saved):
+            setattr(mod, name, fn)
+    torch.cuda.synchronize()
+    return value, {n: sum(s.elapsed_time(e) for s, e in ps)
+                   for n, ps in pairs.items()}
+
+
+def profile_decode(torch, step, n):
+    """[serve] ``n`` decode steps under torch.profiler: wall ms per step
+    (host clock, synchronised), device ms per step (CUDA kernel self
+    time), kernels per step and the three costliest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n
+    if dev_ms <= 0:
+        log("[serve] decode profile: the profiler saw no device time "
+            "(not measured)")
+        return
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:3]
+    log(f"[serve] decode profile ({n} steps, torch.profiler): wall "
+        f"{wall_ms:.3f} ms/step, device busy {dev_ms:.3f} ms/step = "
+        f"{dev_ms / wall_ms:.4f} of the wall, "
+        f"{sum(e.count for e in kern) / n:.0f} kernels/step; costliest: " +
+        "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f} "
+                  f"ms/step x{e.count // n}" for e in top))
+
+
+def phase_serve(torch, ext, cfg, dev, expect_params=SERVE_PARAMS):
+    """[serve] recurrentgemma-9b at full width through the port's Server:
+    weights drawn on the card from torch.Generator seed 0, 4 prompts of
+    4,000 tokens (numpy seed 0), 32 greedy tokens.  The prefill must
+    launch B5 once per local-attention layer and B7 once per RG-LRU
+    layer; the kernel path's logits must agree with the plain path's on
+    the same weights (one copy on the card) at prefill and at every
+    decode step fed the served tokens; the token log must read back."""
+    import numpy as np
+    from repro_torch.core import FunctionShipper
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import model as mdl
+    from repro_torch.models.transformer import stack_kinds
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+    if tf32[0]:
+        fail("[serve] TF32 matmuls are on; the kernel and plain paths "
+             "would differ for a reason that is neither")
+    kinds = [k for ks in stack_kinds(cfg).values() for k in ks]
+    want_launches = {"flash_attention": kinds.count("local"),
+                     "rglru_scan": kinds.count("rglru")}
+    n_params = mdl.count_params_analytic(cfg)
+    if n_params != expect_params:
+        fail(f"[serve] {cfg.name} counts {n_params} parameters, expected "
+             f"{expect_params}")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_real, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    max_len = SERVE_PROMPT + SERVE_GEN + 8
+    root = ROOT / ".chip_smoke" / "serve"
+    remove_store(root)
+    try:
+        torch.cuda.synchronize(dev)             # the device's context is up
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        srv = Server(cfg, root, device=dev, max_len=max_len)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        held = sum(t.numel() for t in mdl.leaves(srv.params))
+        if held != n_params:
+            fail(f"[serve] the server holds {held} parameters, not "
+                 f"{n_params}")
+        log(f"[serve] {cfg.name}: {held} f32 parameters "
+            f"({torch.cuda.memory_allocated(dev)} B on the card) drawn in "
+            f"{init_s:.3f} s; TF32 allow matmul {tf32[0]} cudnn {tf32[1]} "
+            f"float32 matmul precision {tf32[2]!r}; batch {SERVE_BATCH} x "
+            f"{SERVE_PROMPT} prompt tokens, {SERVE_GEN} generated")
+        ext.reset_launch_counts()               # [serve] starts here
+        (out, stats), kms = kernel_event_times(torch, lambda: srv.generate(
+            prompts, SERVE_GEN, keep_logits=True))
+        launches = {k: ext.LAUNCHES[k] for k in MODEL_KERNELS}  # ends here
+        peak = torch.cuda.max_memory_allocated(dev)
+        srv.close()
+        if launches != want_launches:
+            fail(f"[serve] one prefill launched {launches}, expected "
+                 f"{want_launches}")
+        logits = stats.pop("logits")
+        if out.shape != (SERVE_BATCH, SERVE_GEN) or not all(
+                bool(torch.isfinite(x).all()) and x.shape == (
+                    SERVE_BATCH, cfg.vocab_size) for x in logits):
+            fail("[serve] tokens or logits of the wrong shape, or "
+                 "non-finite logits")
+        prefill_ms = stats["prefill_s"] * 1e3
+        log(f"[serve] kernel path: prefill {stats['prefill_s']:.3f} s "
+            f"({SERVE_BATCH * SERVE_PROMPT / stats['prefill_s']:.1f} "
+            f"prompt tok/s), decode {stats['decode_s']:.3f} s = "
+            f"{stats['tok_per_s']:.2f} tok/s ({SERVE_BATCH} x {SERVE_GEN}); "
+            f"launches in the prefill {json.dumps(launches)}; device ms "
+            f"in B5 {kms['flash_attention']:.3f} = "
+            f"{kms['flash_attention'] / prefill_ms:.4f} and in B7 "
+            f"{kms['rglru_scan']:.3f} = {kms['rglru_scan'] / prefill_ms:.4f}"
+            f" of the prefill; peak card memory {peak} B")
+
+        # the token log, streamed into Clovis during decode
+        cl = srv.clovis
+        toks = np.frombuffer(cl.get("stream/tokens"), np.int32)
+        if not np.array_equal(toks.reshape(SERVE_GEN, SERVE_BATCH), out.T):
+            fail("[serve] the token log in Clovis differs from the "
+                 "generated tokens")
+        sh = FunctionShipper(cl)
+        try:
+            hist = sh.ship("histogram", "stream/tokens")
+        finally:
+            sh.shutdown()
+        if not hist.ok or int(np.asarray(hist.value).sum()) != toks.nbytes:
+            fail(f"[serve] histogram over the token log failed: {hist}")
+        log(f"[serve] token log stream/tokens in container servelog: "
+            f"{toks.nbytes} B equal to the generated tokens; in-storage "
+            f"histogram (FunctionShipper) {np.asarray(hist.value)[:8]}...")
+
+        # the plain path on the same weights: prefill, then decode fed
+        # the kernel path's tokens
+        torch.cuda.reset_peak_memory_stats(dev)
+        cache = mdl.init_decode_state(cfg, SERVE_BATCH, max_len,
+                                      dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        plain, cache = mdl.prefill(srv.params, {"tokens": prompts}, cfg,
+                                   cache, use_kernels=False)
+        torch.cuda.synchronize(dev)
+        plain_s = time.perf_counter() - t0
+        rel, agree = [], 0
+        for i in range(SERVE_GEN + 1):
+            if i:
+                plain, cache = mdl.decode_step(
+                    srv.params, torch.from_numpy(out[:, i - 1:i]),
+                    SERVE_PROMPT + i - 1, cfg, cache)
+            scale = float(plain.abs().max())
+            r = float((logits[i] - plain).abs().max()) / scale
+            rel.append(r)
+            agree += int((logits[i].argmax(-1) == plain.argmax(-1)).sum())
+            if not r <= SERVE_LOGIT_RTOL:
+                fail(f"[serve] step {i}: kernel and plain logits differ by "
+                     f"{r:.3e} of the largest |logit| (limit "
+                     f"{SERVE_LOGIT_RTOL})")
+        profile_decode(torch, lambda i: mdl.decode_step(
+            srv.params, plain.argmax(-1)[:, None], SERVE_PROMPT + SERVE_GEN
+            + i, cfg, cache), PROFILE_STEPS)
+        log(f"[serve] plain path (use_kernels=False: dense attention, "
+            f"log-depth scan) on the same weights: prefill {plain_s:.3f} s, "
+            f"peak card memory {torch.cuda.max_memory_allocated(dev)} B; "
+            f"max |kernel - plain| / max |logit| at prefill {rel[0]:.3e}, "
+            f"over the {SERVE_GEN} decode steps {max(rel[1:]):.3e} (limit "
+            f"{SERVE_LOGIT_RTOL}); greedy choices agree "
+            f"{agree}/{SERVE_BATCH * (SERVE_GEN + 1)}")
+        del srv, cache, plain, logits
+        torch.cuda.empty_cache()
+        return {"launches": launches, "prefill_s": stats["prefill_s"],
+                "tok_per_s": stats["tok_per_s"], "peak_bytes": peak,
+                "kernel_ms": kms}
+    finally:
+        remove_store(root)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -896,7 +1250,10 @@ def main() -> int:
     from repro_torch import _ext
     from repro_torch.analytics import kernels as K
     from repro_torch.analytics.exprs import col
+    from repro_torch.configs import get_config
     from repro_torch.core import Clovis
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import rglru as KR
     from repro_torch.percipience import heat as H
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -904,7 +1261,8 @@ def main() -> int:
     smi = phase_card_and_build(torch, _ext)
     chk = phase_kernels(torch, K, col, dev)
     phase_heat(torch, H, chk, dev)
-    timing = phase_timing(torch, K, H, col, dev)
+    phase_model_kernels(torch, KA, KR, chk, dev)
+    timing = phase_timing(torch, K, H, KA, KR, col, dev)
     phase_heat_split(torch, H, dev)
     launches, per_query = phase_main_path(torch, K, col, Clovis, dev)
     phase_percip_store(torch, H, K, dev)
@@ -915,6 +1273,9 @@ def main() -> int:
     if launches["heat_scan"] <= 0:
         fail("heat_scan was not launched on the percipience path")
     stream = phase_stream(torch, K, col, dev)
+    served = phase_serve(torch, _ext,
+                         get_config(SERVE_ARCH).scaled(dtype="float32"), dev)
+    launches.update(served["launches"])
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -924,7 +1285,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": chk.err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": "bytes", "library_ms": t["library_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     log(f"[main] launches per query: {json.dumps(per_query)}")
     log(f"[stream] launches: {json.dumps(stream)}")

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels on first use.
 
-Every ``csrc/*.cu`` source compiles in one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds, and ``ninja`` is not needed), loaded with ``ctypes``, which
-releases the interpreter lock during each launch call.  The library
+Every ``csrc/*.cu`` source compiles in its own ``nvcc`` process, all
+started together, and one more ``nvcc`` call links the objects into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds, and ``ninja`` is not needed), loaded with ``ctypes``,
+which releases the interpreter lock during each launch call.  The library
 lands in ``_build/`` beside this file, named by a hash of all the
 sources and the flags, so an edited source never loads a stale build; a
 build goes to a temporary name and is renamed into place, so a
@@ -33,14 +34,15 @@ SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
-              "-shared", "-Xcompiler", "-fPIC") + ARCH_FLAGS
+              "-Xcompiler", "-fPIC") + ARCH_FLAGS
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of the build (0 if cached)
 build_log: str = ""                     # nvcc/ptxas output of that build
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                   ctypes.c_float)
 # C signatures of the launchers in SOURCES
 _SIGNATURES = {
     "sage_fused_aggregate": (_P, _I, _P, _P, _I, _I, _P, _I, _P, _I64,
@@ -48,12 +50,16 @@ _SIGNATURES = {
     "sage_segment_reduce": (_P, _P, _I64, _P, _I, _I, _I, _P),
     "sage_window_reduce": (_P, _I64, _I64, _I64, _P, _I, _I, _P),
     "sage_heat_scan": (_P, _P, _I64, _I64, _P, _P),
+    "sage_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                             _I, _F, _P),
+    "sage_rglru_scan": (_P, _P, _P, _I64, _I64, _I64, _P, _P),
     "sage_error_string": (_I,),
 }
 
 LAUNCHES: Dict[str, int] = {"fused_filter_aggregate": 0,
                             "segment_reduce": 0, "window_reduce": 0,
-                            "heat_scan": 0}
+                            "heat_scan": 0, "flash_attention": 0,
+                            "rglru_scan": 0}
 _launch_lock = threading.Lock()
 
 
@@ -100,16 +106,32 @@ def _build() -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               *map(str, SOURCES)],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            names = ", ".join(s.name for s in SOURCES)
-            raise KernelBuildError(f"nvcc failed for {names} (exit "
-                                   f"{proc.returncode}):\n{build_log}")
-        os.replace(tmp, out)
+        objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in SOURCES]
+        nvcc = _nvcc()
+        try:
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o",
+                                       str(obj), str(src)],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for src, obj in zip(SOURCES, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            build_log = "".join(logs)
+            bad = [s.name for s, p in zip(SOURCES, procs) if p.returncode]
+            if not bad:
+                link = subprocess.run([nvcc, "-shared", *ARCH_FLAGS, "-o",
+                                       str(tmp), *map(str, objs)],
+                                      capture_output=True, text=True)
+                build_log += link.stdout + link.stderr
+                if link.returncode:
+                    bad = ["the link"]
+            if bad:
+                tmp.unlink(missing_ok=True)
+                raise KernelBuildError(f"nvcc failed for {', '.join(bad)}:"
+                                       f"\n{build_log}")
+            os.replace(tmp, out)
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():

@@ -352,12 +352,24 @@ def clovis_appender(clovis, container: str = "streams",
     'streaming data to Clovis clients to perform I/O on the object
     storage' (paper §4.2 future work, realised here).
 
+    Whole blocks are appended as they fill; ``attach.flush()`` appends
+    what is left of each stream (the reference has no such call, so a
+    tail shorter than a block never reaches its store).
+
     Locking is per stream id so multiple consumers drain *different*
     streams fully in parallel (device time overlaps)."""
     import numpy as np
     meta_lock = threading.Lock()
     locks: Dict[str, threading.Lock] = {}
     buffers: Dict[str, List[bytes]] = {}
+
+    def write(stream_id: str, data: bytes):
+        oid = f"stream/{stream_id}"
+        with meta_lock:
+            if not clovis.exists(oid):
+                clovis.create(oid, block_size=block_size,
+                              container=container, layout=layout)
+        clovis.store.append(oid, data)
 
     def attach(el: StreamElement):
         payload = el.payload
@@ -374,15 +386,23 @@ def clovis_appender(clovis, container: str = "streams",
             chunks = buffers[el.stream_id]
             total = sum(len(c) for c in chunks)
             if total >= block_size:
-                oid = f"stream/{el.stream_id}"
-                with meta_lock:
-                    if not clovis.exists(oid):
-                        clovis.create(oid, block_size=block_size,
-                                      container=container, layout=layout)
                 # flush whole blocks via the append fast path; keep the tail
                 n_full = (total // block_size) * block_size
                 data = b"".join(chunks)
-                clovis.store.append(oid, data[:n_full])
+                write(el.stream_id, data[:n_full])
                 buffers[el.stream_id] = [data[n_full:]] if data[n_full:] else []
 
+    def flush():
+        """Append every stream's buffered tail (call once its producers
+        are drained, e.g. after ``StreamContext.close()``)."""
+        with meta_lock:
+            ids = list(buffers)
+        for sid in ids:
+            with locks[sid]:
+                data = b"".join(buffers[sid])
+                if data:
+                    write(sid, data)
+                buffers[sid] = []
+
+    attach.flush = flush
     return attach

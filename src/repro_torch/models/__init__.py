@@ -1,0 +1,9 @@
+"""The model stack of the port (serving path): recurrentgemma's RG-LRU and
+local-attention blocks, and global attention, over B5 and B7."""
+from repro_torch.models.model import (  # noqa: F401
+    count_params_analytic,
+    decode_step,
+    init_decode_state,
+    init_params,
+    prefill,
+)

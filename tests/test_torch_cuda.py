@@ -168,3 +168,89 @@ def test_heat_scores_on_cuda_equal_cpu(dev):
                        device=dev).shape == (0,)
     assert heat_scores(ts[:5], np.zeros((5, hist)), now,
                        device=dev).tolist() == [0.0] * 5
+
+
+# ---------------------------------------------------------------------------
+# model kernels: B5 flash attention within 1e-4 of each row's max |o|
+# (f32 products summed in another order), B7 the RG-LRU scan bit for bit
+# (--fmad=false)
+# ---------------------------------------------------------------------------
+
+ATTN_CASES = [(4, 16, 1, 4000, 4000, 256, True, 2048, 0.0),
+              (1, 4, 4, 333, 333, 64, True, 0, 0.0),
+              (2, 8, 2, 517, 517, 128, True, 100, 30.0),
+              (1, 8, 1, 129, 129, 256, False, 0, 0.0),
+              (2, 4, 2, 200, 200, 128, False, 50, 30.0),
+              (1, 4, 1, 45, 300, 64, False, 0, 0.0),
+              (1, 1, 1, 1, 1, 64, True, 0, 0.0)]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal,window,softcap", ATTN_CASES)
+def test_flash_attention_kernel_matches_plain(dev, b, h, kv, sq, sk, hd,
+                                              causal, window, softcap):
+    from repro_torch import _ext
+    from repro_torch.kernels import (flash_attention_kernel,
+                                     flash_attention_plain)
+    g = torch.Generator(device=dev)
+    g.manual_seed(sq + hd)
+    q = torch.randn((b, h, sq, hd), generator=g, device=dev)
+    k = torch.randn((b, kv, sk, hd), generator=g, device=dev)
+    v = torch.randn((b, kv, sk, hd), generator=g, device=dev)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+              softcap=softcap)
+    _ext.reset_launch_counts()
+    got = flash_attention_kernel(q, k, v, **kw)
+    assert _ext.LAUNCHES["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, **kw)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    row = want.abs().amax(-1, keepdim=True)
+    assert bool(((got - want).abs() <= 1e-4 * row).all())
+
+
+@pytest.mark.parametrize("b,s,w", [(4, 4000, 4096), (2, 1, 33), (3, 77, 100),
+                                   (1, 4096, 31)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_kernel_matches_plain(dev, b, s, w, with_h0):
+    from repro_torch import _ext
+    from repro_torch.kernels import rglru_scan, rglru_scan_plain
+    g = torch.Generator(device=dev)
+    g.manual_seed(b * s + w)
+    a = torch.rand((b, s, w), generator=g, device=dev)
+    a[torch.rand((b, s, w), generator=g, device=dev) < 0.01] = 1.0
+    x = torch.randn((b, s, w), generator=g, device=dev) * 0.2
+    h0 = torch.randn((b, w), generator=g, device=dev) if with_h0 else None
+    _ext.reset_launch_counts()
+    got = rglru_scan(a, x, h0)
+    assert _ext.LAUNCHES["rglru_scan"] == 1
+    assert torch.equal(got, rglru_scan_plain(a, x, h0))
+
+
+def test_server_kernel_path_matches_plain_path_on_cuda(dev, tmp_path):
+    """A narrow recurrentgemma (head_dim 64, which B5 takes) served on
+    the card: the kernel path launches B5 and B7 once per layer of its
+    kind and serves the plain path's tokens; logits within 1e-3 of the
+    step's largest |logit|."""
+    from repro_torch import _ext
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Server
+    cfg = get_smoke_config("recurrentgemma-9b").scaled(
+        dtype="float32", n_layers=7, head_dim=64, d_model=128,
+        lru_width=128, local_window=16)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_real, (3, 45)).astype(np.int32)
+    runs = []
+    for use_kernels in (True, False):
+        srv = Server(cfg, tmp_path / str(use_kernels), device=dev,
+                     use_kernels=use_kernels, max_len=64)
+        _ext.reset_launch_counts()
+        runs.append(srv.generate(prompts, 8, keep_logits=True))
+        runs[-1][1]["launches"] = dict(_ext.LAUNCHES)
+        srv.close()
+    (out_k, st_k), (out_p, st_p) = runs
+    assert st_k["launches"]["flash_attention"] == 2
+    assert st_k["launches"]["rglru_scan"] == 5
+    assert st_p["launches"]["flash_attention"] == 0
+    assert st_p["launches"]["rglru_scan"] == 0
+    np.testing.assert_array_equal(out_k, out_p)
+    for a, b in zip(st_k["logits"], st_p["logits"]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())

@@ -57,8 +57,20 @@ print(" ".join(names))
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 26                      # every module imported
-    assert names >= {"repro_torch.percipience", "repro_torch.percipience.heat",
+    assert len(names) >= 50                      # every module imported
+    assert names >= {"repro_torch.configs", "repro_torch.configs.base",
+                     "repro_torch.configs.registry",
+                     "repro_torch.configs.recurrentgemma_9b",
+                     "repro_torch.kernels", "repro_torch.kernels.attention",
+                     "repro_torch.kernels.rglru", "repro_torch.models",
+                     "repro_torch.models.common",
+                     "repro_torch.models.attention",
+                     "repro_torch.models.rglru",
+                     "repro_torch.models.transformer",
+                     "repro_torch.models.model",
+                     "repro_torch.models.convert", "repro_torch.launch",
+                     "repro_torch.launch.serve",
+                     "repro_torch.percipience", "repro_torch.percipience.heat",
                      "repro_torch.percipience.advisor",
                      "repro_torch.percipience.prefetcher",
                      "repro_torch.percipience.telemetry",

@@ -1,0 +1,122 @@
+"""The port's serving driver (``repro_torch.launch.serve.Server``) against
+the reference's (``repro.launch.serve.Server``) on the same weights: the
+reference's random parameters go through ``params_from_jax`` into the
+port's server.  Greedy tokens must be equal; logits within ``LOGIT_TOL``
+(atol 2e-4, rtol 1e-4: f32 matmuls summed in another order) of the
+reference's prefill and decode fed the same tokens.  The token log must
+read back from the port's Clovis."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jget_smoke
+from repro.launch.serve import Server as JServer
+from repro.models import model as jmdl
+from repro_torch import NoCudaDeviceError
+from repro_torch.configs import get_smoke_config
+from repro_torch.core import FunctionShipper
+from repro_torch.launch import serve
+from repro_torch.launch.serve import Server
+from repro_torch.models.convert import params_from_jax
+
+ARCH = "recurrentgemma-9b"
+LOGIT_TOL = dict(atol=2e-4, rtol=1e-4)
+B, PROMPT, GEN = 3, 21, 6
+
+
+def _reference_logits(jcfg, params, prompts, out):
+    """The reference's prefill and decode logits, fed the served tokens."""
+    cache = jmdl.init_decode_state(jcfg, B, PROMPT + GEN + 8,
+                                   dtype=jnp.float32)
+    logits, cache = jmdl.prefill(params, {"tokens": jnp.asarray(prompts)},
+                                 jcfg, cache)
+    want = [np.asarray(logits)]
+    for i in range(GEN - 1):
+        logits, cache = jmdl.decode_step(params, jnp.asarray(out[:, i:i + 1]),
+                                         jnp.int32(PROMPT + i), jcfg, cache)
+        want.append(np.asarray(logits))
+    return want
+
+
+@pytest.mark.parametrize("n_layers", [4, 7])     # unrolled, scan layout
+def test_generate_matches_reference_server(tmp_path, n_layers):
+    jcfg = jget_smoke(ARCH).scaled(dtype="float32", n_layers=n_layers)
+    cfg = get_smoke_config(ARCH).scaled(dtype="float32", n_layers=n_layers)
+    prompts = np.random.default_rng(n_layers).integers(
+        0, jcfg.vocab_real, (B, PROMPT)).astype(np.int32)
+    jsrv = JServer(jcfg, root=tmp_path / "j", max_len=PROMPT + GEN + 8)
+    want_out, _ = jsrv.generate(prompts, GEN)
+    jsrv.close()
+    params = params_from_jax(jax.tree.map(np.asarray, jsrv.params), cfg,
+                             device="cpu")
+    srv = Server(cfg, tmp_path / "p", device="cpu", params=params,
+                 max_len=PROMPT + GEN + 8)
+    out, stats = srv.generate(prompts, GEN, keep_logits=True)
+    srv.close()
+    assert out.dtype == np.int32 and out.shape == (B, GEN)
+    np.testing.assert_array_equal(out, want_out)
+    assert len(stats["logits"]) == GEN + 1
+    want = _reference_logits(jcfg, jsrv.params, prompts, out)
+    for got, w in zip(stats["logits"], want):
+        np.testing.assert_allclose(got.numpy(), w, **LOGIT_TOL)
+    assert stats["prefill_s"] > 0 and stats["tok_per_s"] > 0
+
+
+def test_kernel_and_plain_paths_serve_the_same_tokens(tmp_path):
+    cfg = get_smoke_config(ARCH).scaled(dtype="float32")
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_real, (B, PROMPT)).astype(np.int32)
+    outs = []
+    for use_kernels in (True, False):
+        srv = Server(cfg, tmp_path / str(use_kernels), device="cpu",
+                     use_kernels=use_kernels, log_tokens=False,
+                     max_len=PROMPT + GEN + 8)
+        outs.append(srv.generate(prompts, GEN, keep_logits=True))
+        srv.close()
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    for a, b in zip(outs[0][1]["logits"], outs[1][1]["logits"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **LOGIT_TOL)
+
+
+def test_token_log_reads_back_from_clovis(tmp_path):
+    cfg = get_smoke_config(ARCH).scaled(dtype="float32")
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_real, (B, PROMPT)).astype(np.int32)
+    srv = Server(cfg, tmp_path / "s", device="cpu", max_len=64)
+    seen = len(srv.clovis.addb.records("serve"))    # the ADDB is shared
+    out, _ = srv.generate(prompts, GEN)
+    out2, _ = srv.generate(prompts[:, :10], GEN)
+    srv.close()
+    cl = srv.clovis
+    assert "stream/tokens" in cl.container("servelog")
+    log = np.frombuffer(cl.get("stream/tokens"), np.int32)
+    # one row of B tokens per decode step, both calls in order
+    np.testing.assert_array_equal(
+        log.reshape(2 * GEN, B), np.concatenate([out.T, out2.T]))
+    recs = cl.addb.records("serve")[seen:]
+    assert [r.entity for r in recs] == ["generate", "generate"]
+    assert [r.nbytes for r in recs] == [B * GEN, B * GEN]
+    sh = FunctionShipper(cl)
+    try:
+        res = sh.ship("histogram", "stream/tokens")
+    finally:
+        sh.shutdown()
+    assert res.ok and int(np.asarray(res.value).sum()) == log.nbytes
+
+
+def test_default_device_raises_without_a_card(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config(ARCH).scaled(dtype="float32")
+    with pytest.raises(NoCudaDeviceError):
+        Server(cfg, tmp_path / "s")
+    with pytest.raises(NoCudaDeviceError):
+        serve.mdl.init_params(cfg)
+
+
+def test_main_serves_the_smoke_model_on_the_cpu(tmp_path, capsys):
+    serve.main(["--smoke", "--device", "cpu", "--batch", "2",
+                "--prompt-len", "12", "--gen", "3",
+                "--root", str(tmp_path / "m")])
+    assert "generated (2, 3) tokens" in capsys.readouterr().out
