@@ -32,7 +32,7 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
 5. ``[model-kernels]`` (before the timing): B5 flash attention and B7
    the RG-LRU scan against their plain versions at the serving shapes
    and at edge shapes; B7 bit for bit, B5 within ``ATTN_RTOL`` of each
-   query row's largest |o|.  ``[serve]`` (last): recurrentgemma-9b at
+   query row's largest |o|.  ``[serve]``: recurrentgemma-9b at
    full width (9,627,414,528 f32 parameters drawn on the card from
    seed 0) serves 4 prompts of 4,000 tokens (numpy seed 0) and 32
    greedy tokens through ``repro_torch.launch.serve.Server``; its
@@ -41,6 +41,15 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
    and at every decode step (within ``SERVE_LOGIT_RTOL`` of the step's
    largest |logit|), and the token log must read back from Clovis; two
    more decode steps run under torch.profiler (device busy share).
+   ``[model-kernels]`` also holds B6, the Mamba2 SSD scan, against its
+   plain version at the serving shape and at edge shapes (y and the
+   final state within ``SSD_RTOL`` of each (batch, head)'s largest
+   |value|) and, at one small shape, against the sequential oracle
+   ``ssd_reference`` (within ``SSD_SEQ_RTOL``).  ``[serve-ssm]`` (after
+   ``[serve]`` has freed its weights): mamba2-130m at full width
+   (128,983,488 f32 parameters from seed 0) serves 4 prompts of 16,000
+   tokens and 32 greedy tokens the same way; its prefill must launch B6
+   24 times and B5/B7 never.
 6. One JSON line of per-kernel numbers, then the contract's last line.
 
 It imports nothing of JAX or of the reference package ``repro``.
@@ -74,6 +83,11 @@ ATTN_RTOL = 1e-4               # B5 vs plain, relative to the row's max |o|
 SERVE_LOGIT_RTOL = 1e-3        # kernel vs plain path, of the step's max |logit|
 SERVE_ARCH, SERVE_PARAMS = "recurrentgemma-9b", 9_627_414_528
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4000, 32
+SSM_ARCH, SSM_PARAMS = "mamba2-130m", 128_983_488
+SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 16000, 32   # 16,000 = 62.5 chunks
+SSD_RTOL = 1e-4                # B6 vs plain, of the (batch, head)'s max |value|
+SSD_SEQ_RTOL = 1e-3            # B6 vs the sequential oracle (step-by-step
+                               # decays against exponentiated cumsums)
 PROFILE_STEPS = 2              # decode steps traced after the comparison
 # (b, h, kv, sq, sk, hd, causal, window, softcap); the first is the
 # serving shape of recurrentgemma-9b's local-attention layers
@@ -88,8 +102,25 @@ ATTN_CASES = ((4, 16, 1, 4000, 4000, 256, True, 2048, 0.0),
 # (b, s, w, h0); the first two are the serving shape of the RG-LRU layers
 SCAN_CASES = ((4, 4000, 4096, True), (4, 4000, 4096, False),
               (2, 1, 33, True), (3, 77, 100, False), (1, 4096, 31, True))
+# (b, s, h, p, n, g, chunk, initial state); the first two are the serving
+# shape of mamba2-130m's SSD layers, the others edge cases: s = 1,
+# partial chunks, s < chunk, g = 2 and g = h, p not a multiple of the
+# kernel's 16-column slice, and every state size the kernel takes
+SSD_CASES = ((4, 16000, 24, 64, 128, 1, 256, True),
+             (4, 16000, 24, 64, 128, 1, 256, False),
+             (2, 1, 24, 64, 128, 1, 256, True),
+             (2, 255, 8, 64, 128, 1, 256, True),
+             (2, 257, 8, 64, 128, 1, 256, False),
+             (3, 100, 6, 64, 128, 1, 256, True),
+             (2, 300, 4, 64, 128, 2, 256, True),
+             (3, 77, 8, 16, 16, 1, 16, True),
+             (1, 130, 3, 40, 32, 3, 64, True),
+             (1, 70, 2, 8, 256, 1, 32, True),
+             (1, 65, 2, 64, 64, 1, 64, False))
+SSD_SEQ_CASE = 6               # the SSD_CASES entry also held against the oracle
 ANALYTICS_CU = "src/repro_torch/csrc/analytics_kernels.cu"
 MODEL_CU = "src/repro_torch/csrc/model_kernels.cu"
+SSM_CU = "src/repro_torch/csrc/ssm_kernels.cu"
 KERNELS = {   # name -> (source, TPU kernel it replaces: reference file:line)
     "fused_filter_aggregate": (ANALYTICS_CU,
                                "src/repro/analytics/kernels.py:447"),
@@ -99,8 +130,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces: reference file:line)
                   "src/repro/percipience/heat.py:47"),
     "flash_attention": (MODEL_CU, "src/repro/kernels/flash_attention.py:36"),
     "rglru_scan": (MODEL_CU, "src/repro/kernels/rglru_scan.py:29"),
+    "ssd_scan": (SSM_CU, "src/repro/kernels/ssd_scan.py:32"),
 }
-MODEL_KERNELS = ("flash_attention", "rglru_scan")
+MODEL_KERNELS = ("flash_attention", "rglru_scan", "ssd_scan")
 BATCH_KERNELS = ("fused_filter_aggregate", "segment_reduce",
                  "window_reduce")
 
@@ -371,11 +403,37 @@ def scan_inputs(torch, gen, dev, b, s, w, with_h0):
     return a, x, h0
 
 
-def phase_model_kernels(torch, KA, KR, chk, dev):
-    """[model-kernels] B5 and B7 against their plain versions on the
+def ssd_inputs(torch, gen, dev, b, s, h, p, n, g, with_state):
+    """The SSD layer's inputs as the mamba2 block makes them: dt the
+    softplus of a normal (dt_bias 0), a_log = log(linspace(1, 16, h)) as
+    ``init_ssm`` sets it, x, B, C and the state normal."""
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    dt = torch.nn.functional.softplus(r(b, s, h))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    s0 = r(b, h, p, n, scale=0.5) if with_state else None
+    return (r(b, s, h, p), dt, a_log, r(b, s, g, n, scale=0.5),
+            r(b, s, g, n, scale=0.5), s0)
+
+
+def ssd_error(got, want, dims):
+    """(max |got - want|, the largest |got - want| / the (batch, head)'s
+    max |want|); ``dims`` are the axes reduced per (batch, head)."""
+    diff = (got - want).abs()
+    scale = want.abs().amax(dim=dims, keepdim=True).clamp_min(1e-30)
+    return float(diff.max()), float((diff / scale).amax())
+
+
+def phase_model_kernels(torch, KA, KR, KS, chk, dev):
+    """[model-kernels] B5, B6 and B7 against their plain versions on the
     card: B7 bit for bit (both round the multiply and the add
     separately), B5 within ATTN_RTOL of each query row's largest |o|
-    (f32 products summed in another order than the plain matmuls)."""
+    (f32 products summed in another order than the plain matmuls), B6's
+    y and final state within SSD_RTOL of each (batch, head)'s largest
+    |value| (64-row sub-chunks against the plain version's chunks: the
+    same function, other roundings), and at one small shape within
+    SSD_SEQ_RTOL of the sequential oracle."""
+    from repro_torch.models.ssm import ssd_reference
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     worst_rel = 0.0
@@ -410,6 +468,37 @@ def phase_model_kernels(torch, KA, KR, chk, dev):
         if not torch.equal(got, want):
             fail(f"rglru_scan b={b} s={s_} w={w} h0={with_h0}: kernel and "
                  f"plain differ (max abs error {err})")
+    ssd_rel, ssd_worst, seq_rel = 0.0, "", 0.0
+    for i, (b, s_, h, p, n, g, chunk, with_s0) in enumerate(SSD_CASES):
+        args = ssd_inputs(torch, gen, dev, b, s_, h, p, n, g, with_s0)
+        got = KS.ssd_scan(*args[:5], chunk=chunk, initial_state=args[5])
+        wants = [("plain", KS.ssd_chunked(*args[:5], chunk,
+                                          initial_state=args[5]),
+                  SSD_RTOL)]
+        if i == SSD_SEQ_CASE:
+            wants.append(("ssd_reference", ssd_reference(*args), SSD_SEQ_RTOL))
+        chk.cases["ssd_scan"] += 1
+        what = (f"ssd_scan b={b} s={s_} h={h} p={p} n={n} g={g} "
+                f"chunk={chunk} initial_state={with_s0}")
+        for name, want, rtol in wants:
+            for part, dims, x, w in (("y", (1, 3), got[0], want[0]),
+                                     ("final state", (2, 3), got[1],
+                                      want[1])):
+                if x.shape != w.shape or not bool(torch.isfinite(x).all()):
+                    fail(f"{what}: {part} of shape {tuple(x.shape)} or "
+                         f"non-finite")
+                err, rel = ssd_error(x, w, dims)
+                if name == "plain":
+                    chk.err["ssd_scan"] = max(chk.err["ssd_scan"], err)
+                    if rel > ssd_rel:
+                        ssd_rel, ssd_worst = rel, f"{part} at {what}"
+                else:
+                    seq_rel = max(seq_rel, rel)
+                if not rel <= rtol:
+                    fail(f"{what}: kernel and {name} {part} differ by "
+                         f"{rel:.3e} of the (batch, head)'s max (limit "
+                         f"{rtol}; max abs error {err})")
+        del args, got, wants
     torch.cuda.synchronize()
     log(f"[model-kernels] kernel == plain on the card: flash_attention "
         f"{chk.cases['flash_attention']} cases (MHA/GQA/MQA, window 0 and "
@@ -417,7 +506,13 @@ def phase_model_kernels(torch, KA, KR, chk, dev):
         f"64/128/256), max abs error {chk.err['flash_attention']}, max "
         f"error / row max |o| {worst_rel:.3e} (limit {ATTN_RTOL}); "
         f"rglru_scan {chk.cases['rglru_scan']} cases bit for bit (with and "
-        f"without h0, s=1, w not a multiple of 32)")
+        f"without h0, s=1, w not a multiple of 32); ssd_scan "
+        f"{chk.cases['ssd_scan']} cases (serving shape with and without a "
+        f"state, s=1, partial chunks, g=2 and g=h, n 16-256), max abs "
+        f"error {chk.err['ssd_scan']}, max error / (batch, head) max "
+        f"{ssd_rel:.3e} (limit {SSD_RTOL}; {ssd_worst}), against "
+        f"ssd_reference at "
+        f"SSD_CASES[{SSD_SEQ_CASE}] {seq_rel:.3e} (limit {SSD_SEQ_RTOL})")
 
 
 # ---------------------------------------------------------------------------
@@ -452,12 +547,28 @@ def attn_pairs(sq, sk, causal, window):
     return n
 
 
-def phase_timing(torch, K, H, KA, KR, col, dev):
+def ssd_flops(b, s, h, p, n, chunk):
+    """Operations of the chunked SSD scan at ``chunk``, causal pairs only
+    (as B5's visible pairs): per chunk of L rows, L(L+1)/2 pairs x (2n
+    for C.B and 2p for the gated product with x), plus 2 x 2 L n p for
+    y_off and the state update.  The form is exact at any chunk length
+    and its work a row, (L+1)/2 (2n + 2p) + 4np, grows with L, so the
+    least work of the function is at chunk 1, the step-by-step
+    recurrence; B6's bound is counted there."""
+    total = 0
+    for c0 in range(0, s, chunk):
+        L = min(chunk, s - c0)
+        total += L * (L + 1) // 2 * (2 * n + 2 * p) + 4 * L * n * p
+    return b * h * total
+
+
+def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     """Each kernel at the shape its path gives it: B1 as query (a)'s
     fused pass, B2 as query (c)'s histogram count, B3 as query (d)'s
     window max (one partition each), B4 as one heat refresh of 262,144
     tracked objects, B5 and B7 as one local-attention and one RG-LRU
-    layer of the [serve] prefill."""
+    layer of the [serve] prefill, B6 as one SSD layer of the
+    [serve-ssm] prefill."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
@@ -556,6 +667,25 @@ def phase_timing(torch, K, H, KA, KR, col, dev):
         library_ms=None, bound_bytes=4 * (3 * a.numel() + h0.numel()),
         shape=f"b={b} s={s_} w={w} f32")
     del a, x, h0
+
+    # B6: one SSD layer of the [serve-ssm] prefill (initial state from the
+    # cache); no one PyTorch call computes the SSD scan
+    b, s_, h, p, n, g, chunk, with_s0 = SSD_CASES[0]
+    args = ssd_inputs(torch, gen, dev, b, s_, h, p, n, g, with_s0)
+    io = sum(t.numel() for t in args if t is not None) \
+        + b * s_ * h * p + b * h * p * n          # + y and the final state
+    out["ssd_scan"] = dict(
+        ms=device_ms(torch, lambda: KS.ssd_scan(
+            *args[:5], chunk=chunk, initial_state=args[5])),
+        plain_ms=device_ms(torch, lambda: KS.ssd_chunked(
+            *args[:5], chunk, initial_state=args[5])),
+        library_ms=None, bound_bytes=4 * io,
+        bound_flops=ssd_flops(b, s_, h, p, n, 1),
+        shape=f"b={b} s={s_} h={h} p={p} n={n} g={g} f32, counted at "
+        f"chunk 1; the kernel's 64-row sub-chunks do "
+        f"{ssd_flops(b, s_, h, p, n, 64)} FLOP, the reference's chunk "
+        f"{chunk} {ssd_flops(b, s_, h, p, n, chunk)}")
+    del args
 
     for name, r in out.items():
         bytes_ms = r["bound_bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1048,11 +1178,14 @@ def phase_stream(torch, K, col, dev):
 
 
 def kernel_event_times(torch, run):
-    """Run ``run()`` with CUDA events around every B5 and B7 wrapper call
-    the model layers make; returns (run's value, ms summed per kernel)."""
+    """Run ``run()`` with CUDA events around every B5, B6 and B7 wrapper
+    call the model layers make; returns (run's value, ms summed per
+    kernel)."""
     from repro_torch.models import attention as MA
     from repro_torch.models import rglru as MR
-    targets = ((MA, "flash_attention"), (MR, "rglru_scan"))
+    from repro_torch.models import ssm as MS
+    targets = ((MA, "flash_attention"), (MR, "rglru_scan"),
+               (MS, "ssd_scan"))
     saved = [getattr(mod, name) for mod, name in targets]
     pairs = {name: [] for _, name in targets}
 
@@ -1077,7 +1210,7 @@ def kernel_event_times(torch, run):
                    for n, ps in pairs.items()}
 
 
-def profile_decode(torch, step, n):
+def profile_decode(torch, step, n, tag="serve"):
     """[serve] ``n`` decode steps under torch.profiler: wall ms per step
     (host clock, synchronised), device ms per step (CUDA kernel self
     time), kernels per step and the three costliest kernels."""
@@ -1095,11 +1228,11 @@ def profile_decode(torch, step, n):
             if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n
     if dev_ms <= 0:
-        log("[serve] decode profile: the profiler saw no device time "
+        log(f"[{tag}] decode profile: the profiler saw no device time "
             "(not measured)")
         return
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:3]
-    log(f"[serve] decode profile ({n} steps, torch.profiler): wall "
+    log(f"[{tag}] decode profile ({n} steps, torch.profiler): wall "
         f"{wall_ms:.3f} ms/step, device busy {dev_ms:.3f} ms/step = "
         f"{dev_ms / wall_ms:.4f} of the wall, "
         f"{sum(e.count for e in kern) / n:.0f} kernels/step; costliest: " +
@@ -1107,14 +1240,21 @@ def profile_decode(torch, step, n):
                   f"ms/step x{e.count // n}" for e in top))
 
 
-def phase_serve(torch, ext, cfg, dev, expect_params=SERVE_PARAMS):
-    """[serve] recurrentgemma-9b at full width through the port's Server:
-    weights drawn on the card from torch.Generator seed 0, 4 prompts of
-    4,000 tokens (numpy seed 0), 32 greedy tokens.  The prefill must
-    launch B5 once per local-attention layer and B7 once per RG-LRU
-    layer; the kernel path's logits must agree with the plain path's on
-    the same weights (one copy on the card) at prefill and at every
-    decode step fed the served tokens; the token log must read back."""
+KERNEL_TAGS = {"flash_attention": "B5", "ssd_scan": "B6", "rglru_scan": "B7"}
+
+
+def phase_serve(torch, ext, cfg, dev, *, tag="serve",
+                expect_params=SERVE_PARAMS, batch=SERVE_BATCH,
+                prompt=SERVE_PROMPT, gen=SERVE_GEN):
+    """[serve] recurrentgemma-9b (or, as [serve-ssm], mamba2-130m) at
+    full width through the port's Server: weights drawn on the card from
+    torch.Generator seed 0, ``batch`` prompts of ``prompt`` tokens (numpy
+    seed 0), ``gen`` greedy tokens.  The prefill must launch B5 once per
+    attention layer, B7 once per RG-LRU layer and B6 once per SSD layer,
+    and no other; the kernel path's logits must agree with the plain
+    path's on the same weights (one copy on the card) at prefill and at
+    every decode step fed the served tokens; the token log must read
+    back.  Returns the launches of the kernels the model runs."""
     import numpy as np
     from repro_torch.core import FunctionShipper
     from repro_torch.launch.serve import Server
@@ -1124,19 +1264,21 @@ def phase_serve(torch, ext, cfg, dev, expect_params=SERVE_PARAMS):
             torch.backends.cudnn.allow_tf32,
             torch.get_float32_matmul_precision())
     if tf32[0]:
-        fail("[serve] TF32 matmuls are on; the kernel and plain paths "
+        fail(f"[{tag}] TF32 matmuls are on; the kernel and plain paths "
              "would differ for a reason that is neither")
     kinds = [k for ks in stack_kinds(cfg).values() for k in ks]
-    want_launches = {"flash_attention": kinds.count("local"),
-                     "rglru_scan": kinds.count("rglru")}
+    want_launches = {
+        "flash_attention": kinds.count("local") + kinds.count("global"),
+        "rglru_scan": kinds.count("rglru"), "ssd_scan": kinds.count("ssd")}
+    used = [k for k in MODEL_KERNELS if want_launches[k]]
     n_params = mdl.count_params_analytic(cfg)
     if n_params != expect_params:
-        fail(f"[serve] {cfg.name} counts {n_params} parameters, expected "
+        fail(f"[{tag}] {cfg.name} counts {n_params} parameters, expected "
              f"{expect_params}")
     prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_real, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
-    max_len = SERVE_PROMPT + SERVE_GEN + 8
-    root = ROOT / ".chip_smoke" / "serve"
+        0, cfg.vocab_real, (batch, prompt)).astype(np.int32)
+    max_len = prompt + gen + 8
+    root = ROOT / ".chip_smoke" / tag
     remove_store(root)
     try:
         torch.cuda.synchronize(dev)             # the device's context is up
@@ -1147,44 +1289,43 @@ def phase_serve(torch, ext, cfg, dev, expect_params=SERVE_PARAMS):
         init_s = time.perf_counter() - t0
         held = sum(t.numel() for t in mdl.leaves(srv.params))
         if held != n_params:
-            fail(f"[serve] the server holds {held} parameters, not "
+            fail(f"[{tag}] the server holds {held} parameters, not "
                  f"{n_params}")
-        log(f"[serve] {cfg.name}: {held} f32 parameters "
+        log(f"[{tag}] {cfg.name}: {held} f32 parameters "
             f"({torch.cuda.memory_allocated(dev)} B on the card) drawn in "
             f"{init_s:.3f} s; TF32 allow matmul {tf32[0]} cudnn {tf32[1]} "
-            f"float32 matmul precision {tf32[2]!r}; batch {SERVE_BATCH} x "
-            f"{SERVE_PROMPT} prompt tokens, {SERVE_GEN} generated")
-        ext.reset_launch_counts()               # [serve] starts here
+            f"float32 matmul precision {tf32[2]!r}; batch {batch} x "
+            f"{prompt} prompt tokens, {gen} generated")
+        ext.reset_launch_counts()               # the served path starts here
         (out, stats), kms = kernel_event_times(torch, lambda: srv.generate(
-            prompts, SERVE_GEN, keep_logits=True))
+            prompts, gen, keep_logits=True))
         launches = {k: ext.LAUNCHES[k] for k in MODEL_KERNELS}  # ends here
         peak = torch.cuda.max_memory_allocated(dev)
         srv.close()
         if launches != want_launches:
-            fail(f"[serve] one prefill launched {launches}, expected "
+            fail(f"[{tag}] one prefill launched {launches}, expected "
                  f"{want_launches}")
         logits = stats.pop("logits")
-        if out.shape != (SERVE_BATCH, SERVE_GEN) or not all(
+        if out.shape != (batch, gen) or not all(
                 bool(torch.isfinite(x).all()) and x.shape == (
-                    SERVE_BATCH, cfg.vocab_size) for x in logits):
-            fail("[serve] tokens or logits of the wrong shape, or "
+                    batch, cfg.vocab_size) for x in logits):
+            fail(f"[{tag}] tokens or logits of the wrong shape, or "
                  "non-finite logits")
         prefill_ms = stats["prefill_s"] * 1e3
-        log(f"[serve] kernel path: prefill {stats['prefill_s']:.3f} s "
-            f"({SERVE_BATCH * SERVE_PROMPT / stats['prefill_s']:.1f} "
+        log(f"[{tag}] kernel path: prefill {stats['prefill_s']:.3f} s "
+            f"({batch * prompt / stats['prefill_s']:.1f} "
             f"prompt tok/s), decode {stats['decode_s']:.3f} s = "
-            f"{stats['tok_per_s']:.2f} tok/s ({SERVE_BATCH} x {SERVE_GEN}); "
+            f"{stats['tok_per_s']:.2f} tok/s ({batch} x {gen}); "
             f"launches in the prefill {json.dumps(launches)}; device ms "
-            f"in B5 {kms['flash_attention']:.3f} = "
-            f"{kms['flash_attention'] / prefill_ms:.4f} and in B7 "
-            f"{kms['rglru_scan']:.3f} = {kms['rglru_scan'] / prefill_ms:.4f}"
-            f" of the prefill; peak card memory {peak} B")
+            + ", ".join(f"in {KERNEL_TAGS[k]} {kms[k]:.3f} = "
+                        f"{kms[k] / prefill_ms:.4f}" for k in used)
+            + f" of the prefill; peak card memory {peak} B")
 
         # the token log, streamed into Clovis during decode
         cl = srv.clovis
         toks = np.frombuffer(cl.get("stream/tokens"), np.int32)
-        if not np.array_equal(toks.reshape(SERVE_GEN, SERVE_BATCH), out.T):
-            fail("[serve] the token log in Clovis differs from the "
+        if not np.array_equal(toks.reshape(gen, batch), out.T):
+            fail(f"[{tag}] the token log in Clovis differs from the "
                  "generated tokens")
         sh = FunctionShipper(cl)
         try:
@@ -1192,15 +1333,15 @@ def phase_serve(torch, ext, cfg, dev, expect_params=SERVE_PARAMS):
         finally:
             sh.shutdown()
         if not hist.ok or int(np.asarray(hist.value).sum()) != toks.nbytes:
-            fail(f"[serve] histogram over the token log failed: {hist}")
-        log(f"[serve] token log stream/tokens in container servelog: "
+            fail(f"[{tag}] histogram over the token log failed: {hist}")
+        log(f"[{tag}] token log stream/tokens in container servelog: "
             f"{toks.nbytes} B equal to the generated tokens; in-storage "
             f"histogram (FunctionShipper) {np.asarray(hist.value)[:8]}...")
 
         # the plain path on the same weights: prefill, then decode fed
         # the kernel path's tokens
         torch.cuda.reset_peak_memory_stats(dev)
-        cache = mdl.init_decode_state(cfg, SERVE_BATCH, max_len,
+        cache = mdl.init_decode_state(cfg, batch, max_len,
                                       dtype=torch.float32, device=dev)
         t0 = time.perf_counter()
         plain, cache = mdl.prefill(srv.params, {"tokens": prompts}, cfg,
@@ -1208,34 +1349,32 @@ def phase_serve(torch, ext, cfg, dev, expect_params=SERVE_PARAMS):
         torch.cuda.synchronize(dev)
         plain_s = time.perf_counter() - t0
         rel, agree = [], 0
-        for i in range(SERVE_GEN + 1):
+        for i in range(gen + 1):
             if i:
                 plain, cache = mdl.decode_step(
                     srv.params, torch.from_numpy(out[:, i - 1:i]),
-                    SERVE_PROMPT + i - 1, cfg, cache)
+                    prompt + i - 1, cfg, cache)
             scale = float(plain.abs().max())
             r = float((logits[i] - plain).abs().max()) / scale
             rel.append(r)
             agree += int((logits[i].argmax(-1) == plain.argmax(-1)).sum())
             if not r <= SERVE_LOGIT_RTOL:
-                fail(f"[serve] step {i}: kernel and plain logits differ by "
+                fail(f"[{tag}] step {i}: kernel and plain logits differ by "
                      f"{r:.3e} of the largest |logit| (limit "
                      f"{SERVE_LOGIT_RTOL})")
         profile_decode(torch, lambda i: mdl.decode_step(
-            srv.params, plain.argmax(-1)[:, None], SERVE_PROMPT + SERVE_GEN
-            + i, cfg, cache), PROFILE_STEPS)
-        log(f"[serve] plain path (use_kernels=False: dense attention, "
-            f"log-depth scan) on the same weights: prefill {plain_s:.3f} s, "
-            f"peak card memory {torch.cuda.max_memory_allocated(dev)} B; "
-            f"max |kernel - plain| / max |logit| at prefill {rel[0]:.3e}, "
-            f"over the {SERVE_GEN} decode steps {max(rel[1:]):.3e} (limit "
-            f"{SERVE_LOGIT_RTOL}); greedy choices agree "
-            f"{agree}/{SERVE_BATCH * (SERVE_GEN + 1)}")
+            srv.params, plain.argmax(-1)[:, None], prompt + gen + i, cfg,
+            cache), PROFILE_STEPS, tag)
+        log(f"[{tag}] plain path (use_kernels=False: the reference's dense "
+            f"attention, log-depth scan and chunked SSD) on the same "
+            f"weights: prefill {plain_s:.3f} s, peak card memory "
+            f"{torch.cuda.max_memory_allocated(dev)} B; max |kernel - "
+            f"plain| / max |logit| at prefill {rel[0]:.3e}, over the {gen} "
+            f"decode steps {max(rel[1:]):.3e} (limit {SERVE_LOGIT_RTOL}); "
+            f"greedy choices agree {agree}/{batch * (gen + 1)}")
         del srv, cache, plain, logits
         torch.cuda.empty_cache()
-        return {"launches": launches, "prefill_s": stats["prefill_s"],
-                "tok_per_s": stats["tok_per_s"], "peak_bytes": peak,
-                "kernel_ms": kms}
+        return {k: launches[k] for k in used}
     finally:
         remove_store(root)
 
@@ -1254,6 +1393,7 @@ def main() -> int:
     from repro_torch.core import Clovis
     from repro_torch.kernels import attention as KA
     from repro_torch.kernels import rglru as KR
+    from repro_torch.kernels import ssd as KS
     from repro_torch.percipience import heat as H
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -1261,8 +1401,8 @@ def main() -> int:
     smi = phase_card_and_build(torch, _ext)
     chk = phase_kernels(torch, K, col, dev)
     phase_heat(torch, H, chk, dev)
-    phase_model_kernels(torch, KA, KR, chk, dev)
-    timing = phase_timing(torch, K, H, KA, KR, col, dev)
+    phase_model_kernels(torch, KA, KR, KS, chk, dev)
+    timing = phase_timing(torch, K, H, KA, KR, KS, col, dev)
     phase_heat_split(torch, H, dev)
     launches, per_query = phase_main_path(torch, K, col, Clovis, dev)
     phase_percip_store(torch, H, K, dev)
@@ -1273,9 +1413,12 @@ def main() -> int:
     if launches["heat_scan"] <= 0:
         fail("heat_scan was not launched on the percipience path")
     stream = phase_stream(torch, K, col, dev)
-    served = phase_serve(torch, _ext,
-                         get_config(SERVE_ARCH).scaled(dtype="float32"), dev)
-    launches.update(served["launches"])
+    launches.update(phase_serve(
+        torch, _ext, get_config(SERVE_ARCH).scaled(dtype="float32"), dev))
+    launches.update(phase_serve(
+        torch, _ext, get_config(SSM_ARCH).scaled(dtype="float32"), dev,
+        tag="serve-ssm", expect_params=SSM_PARAMS, batch=SSM_BATCH,
+        prompt=SSM_PROMPT, gen=SSM_GEN))
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

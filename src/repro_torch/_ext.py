@@ -53,13 +53,15 @@ _SIGNATURES = {
     "sage_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                              _I, _F, _P),
     "sage_rglru_scan": (_P, _P, _P, _I64, _I64, _I64, _P, _P),
+    "sage_ssd_scan": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I,
+                      _P, _P, _P),
     "sage_error_string": (_I,),
 }
 
 LAUNCHES: Dict[str, int] = {"fused_filter_aggregate": 0,
                             "segment_reduce": 0, "window_reduce": 0,
                             "heat_scan": 0, "flash_attention": 0,
-                            "rglru_scan": 0}
+                            "rglru_scan": 0, "ssd_scan": 0}
 _launch_lock = threading.Lock()
 
 

@@ -1,9 +1,9 @@
 """Batched serving driver: prefill + greedy decode with KV/state caches
 (the port of ``repro.launch.serve``).
 
-The prefill runs the attention and recurrence layers through the
-hand-written kernels B5 and B7 on the card (``use_kernels=True``, the
-default); decode is plain torch, as in the reference.  Served tokens are
+The prefill runs the attention, RG-LRU and SSD layers through the
+hand-written kernels B5, B7 and B6 on the card (``use_kernels=True``,
+the default); decode is plain torch, as in the reference.  Served tokens are
 offloaded to a StreamContext consumer that appends to the port's Clovis
 (container ``servelog``, object ``stream/tokens``: int32, one row of
 ``batch`` tokens per step), and each ``generate`` call leaves an ADDB
@@ -11,9 +11,12 @@ offloaded to a StreamContext consumer that appends to the port's Clovis
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \\
         recurrentgemma-9b --smoke --device cpu --batch 4 --prompt-len 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \\
+        mamba2-130m --smoke --device cpu
 
 On the card (the default device) drop ``--device cpu``;
-``chip_smoke.py``'s ``[serve]`` phase serves the full-width model.
+``chip_smoke.py``'s ``[serve]`` and ``[serve-ssm]`` phases serve the
+full-width recurrentgemma-9b and mamba2-130m.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """The model stack of the port (serving path): recurrentgemma's RG-LRU and
-local-attention blocks, and global attention, over B5 and B7."""
+local-attention blocks, global attention and mamba2's SSD block, over
+B5, B6 and B7."""
 from repro_torch.models.model import (  # noqa: F401
     count_params_analytic,
     decode_step,

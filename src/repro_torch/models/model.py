@@ -138,9 +138,9 @@ def prefill(params, batch: Dict, cfg: ModelConfig, cache: Dict, *,
             use_kernels: bool = True) -> Tuple[torch.Tensor, Dict]:
     """Process the prompt from position 0; returns (last-token logits
     f32 (b, vocab), filled cache).  ``use_kernels`` runs the attention
-    and recurrence through B5 and B7 (their plain versions on the CPU);
-    False takes the reference's dense/chunked attention and log-depth
-    scan instead."""
+    and the scans through B5, B6 and B7 (their plain versions on the
+    CPU); False takes the reference's dense/chunked attention, log-depth
+    scan and chunked SSD instead."""
     _check_batch(batch)
     tokens = torch.as_tensor(batch["tokens"])
     b, s = tokens.shape

@@ -1,7 +1,7 @@
 """Decoder stacks over the block zoo (the port of
-``repro.models.transformer``), for the kinds this slice serves: global and
-local (sliding-window) attention and the RG-LRU block, in modes prefill
-and decode.
+``repro.models.transformer``), for the kinds the port serves: global and
+local (sliding-window) attention, the RG-LRU block and the Mamba2 SSD
+block, in modes prefill and decode.
 
 The reference groups layers into repetitions of the architecture's
 ``attn_pattern`` and scans them over stacked parameters ("scan" layout);
@@ -11,9 +11,8 @@ layers into (prefix, reps x pattern, extra), so the reference's
 parameters map onto the port's one for one (``models.convert``).
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: the ssd kind (mamba2, A6); the cross and encoder/encdec kinds,
-MLA, MoE and the audio family's LayerNorm MLP (A11); the train mode
-(A12).
+item: the cross and encoder/encdec kinds, MLA, MoE and the audio
+family's LayerNorm MLP (A11); the train mode (A12).
 """
 from __future__ import annotations
 
@@ -24,10 +23,10 @@ import torch
 from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
                                       ModelConfig)
 from repro_torch.models import attention as attn
-from repro_torch.models import common, rglru
+from repro_torch.models import common, rglru, ssm
 from repro_torch.models.common import dense_init
 
-PORTED_KINDS = (GLOBAL_ATTN, LOCAL_ATTN, RGLRU)
+PORTED_KINDS = (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD)
 
 
 def not_ported(what: str, item: str = "A11"):
@@ -39,8 +38,7 @@ def check_config(cfg: ModelConfig):
     """Raise for a configuration this slice cannot run."""
     bad = sorted(set(cfg.attn_pattern) - set(PORTED_KINDS))
     if bad:
-        raise not_ported(f"block kind(s) {bad} ({cfg.name})",
-                         "A6" if bad == [SSD] else "A11")
+        raise not_ported(f"block kind(s) {bad} ({cfg.name})")
     if cfg.is_moe:
         raise not_ported(f"MoE ({cfg.name})")
     if cfg.use_mla:
@@ -100,13 +98,17 @@ def init_block(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
         p["mixer"] = attn.init_attention(gen, cfg, **kw)
     elif kind == RGLRU:
         p["mixer"] = rglru.init_rglru(gen, cfg, **kw)
+    elif kind == SSD:
+        p["mixer"] = ssm.init_ssm(gen, cfg, **kw)
     else:
         raise not_ported(f"block kind {kind!r}")
-    p["ln2"] = init_norm(cfg, **kw)
-    p["mlp"] = init_mlp(gen, cfg, cfg.d_ff, **kw)
+    if kind != SSD:      # mamba2 blocks have no MLP
+        p["ln2"] = init_norm(cfg, **kw)
+        p["mlp"] = init_mlp(gen, cfg, cfg.d_ff, **kw)
     if cfg.sandwich_norm:
         p["ln1_post"] = init_norm(cfg, **kw)
-        p["ln2_post"] = init_norm(cfg, **kw)
+        if "ln2" in p:
+            p["ln2_post"] = init_norm(cfg, **kw)
     return p
 
 
@@ -116,8 +118,8 @@ def block_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                   cache: Optional[Dict] = None, use_kernels: bool = True
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One block in mode ``prefill`` or ``decode``.  Returns
-    (x, new_cache).  ``use_kernels`` picks B5/B7 for the prefill's
-    attention and recurrence; decode runs plain torch either way."""
+    (x, new_cache).  ``use_kernels`` picks B5/B6/B7 for the prefill's
+    attention and scans; decode runs plain torch either way."""
     if mode not in ("prefill", "decode"):
         raise not_ported(f"block mode {mode!r}", "A12")
     h = apply_norm(p["ln1"], x, cfg)
@@ -136,12 +138,20 @@ def block_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 p["mixer"], h, cfg, cache, use_kernels=use_kernels)
         else:
             mix, new_cache = rglru.rglru_decode(p["mixer"], h, cfg, cache)
+    elif kind == SSD:
+        if mode == "prefill":
+            mix, new_cache = ssm.ssm_prefill(p["mixer"], h, cfg, cache,
+                                             use_kernels=use_kernels)
+        else:
+            mix, new_cache = ssm.ssm_decode(p["mixer"], h, cfg, cache)
     else:
         raise not_ported(f"block kind {kind!r}")
 
     if cfg.sandwich_norm:
         mix = apply_norm(p["ln1_post"], mix, cfg)
     x = x + mix
+    if kind == SSD:      # no MLP half
+        return x, new_cache
     y = mlp_forward(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
     if cfg.sandwich_norm:
         y = apply_norm(p["ln2_post"], y, cfg)
@@ -154,6 +164,8 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         return attn.init_cache(cfg, batch, max_len, kind, dtype, device)
     if kind == RGLRU:
         return rglru.init_rglru_cache(cfg, batch, device=device)
+    if kind == SSD:      # f32 whatever dtype, as the reference's
+        return ssm.init_ssm_cache(cfg, batch, device=device)
     raise not_ported(f"block kind {kind!r}")
 
 

@@ -254,3 +254,72 @@ def test_server_kernel_path_matches_plain_path_on_cuda(dev, tmp_path):
     np.testing.assert_array_equal(out_k, out_p)
     for a, b in zip(st_k["logits"], st_p["logits"]):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# B6 the SSD scan: y and the final state within 1e-4 of each (batch,
+# head)'s largest |value| of the plain version (64-row sub-chunks against
+# the plain version's chunks: the same function, other roundings)
+# ---------------------------------------------------------------------------
+
+SSD_CASES = [(2, 1, 24, 64, 128, 1, 256, True),
+             (2, 255, 8, 64, 128, 1, 256, True),
+             (2, 257, 8, 64, 128, 1, 256, False),
+             (3, 100, 6, 64, 128, 1, 256, True),
+             (2, 300, 4, 64, 128, 2, 256, True),
+             (3, 77, 8, 16, 16, 1, 16, True),
+             (1, 130, 3, 40, 32, 3, 64, True),
+             (1, 70, 2, 8, 256, 1, 32, True),
+             (1, 65, 2, 64, 64, 1, 64, False)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,g,chunk,with_state", SSD_CASES)
+def test_ssd_kernel_matches_plain(dev, b, s, h, p, n, g, chunk, with_state):
+    from repro_torch import _ext
+    from repro_torch.kernels import ssd_chunked, ssd_scan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(b * s + n)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x, dt = r(b, s, h, p), torch.nn.functional.softplus(r(b, s, h))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    B, C = r(b, s, g, n) * 0.5, r(b, s, g, n) * 0.5
+    s0 = r(b, h, p, n) * 0.5 if with_state else None
+    _ext.reset_launch_counts()
+    got = ssd_scan(x, dt, a_log, B, C, chunk=chunk, initial_state=s0)
+    assert _ext.LAUNCHES["ssd_scan"] == 1
+    want = ssd_chunked(x, dt, a_log, B, C, chunk, initial_state=s0)
+    for gt, w, dims in ((got[0], want[0], (1, 3)), (got[1], want[1], (2, 3))):
+        assert gt.shape == w.shape and gt.dtype == torch.float32
+        scale = w.abs().amax(dim=dims, keepdim=True)
+        assert bool(((gt - w).abs() <= 1e-4 * scale).all())
+
+
+def test_mamba2_server_kernel_path_matches_plain_path_on_cuda(dev, tmp_path):
+    """A narrow, 3-layer mamba2 (the "scan" layout) served on the card:
+    the kernel path launches B6 once per layer, and never B5 or B7, and
+    serves the plain path's tokens; logits within 1e-3 of the step's
+    largest |logit|.  150 prompt tokens: not a multiple of the chunk."""
+    from repro_torch import _ext
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Server
+    cfg = get_smoke_config("mamba2-130m").scaled(
+        dtype="float32", n_layers=3, d_model=128, ssm_state=32,
+        ssm_headdim=32, ssm_chunk=64)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_real, (3, 150)).astype(np.int32)
+    runs = []
+    for use_kernels in (True, False):
+        srv = Server(cfg, tmp_path / str(use_kernels), device=dev,
+                     use_kernels=use_kernels, max_len=170)
+        _ext.reset_launch_counts()
+        runs.append(srv.generate(prompts, 8, keep_logits=True))
+        runs[-1][1]["launches"] = dict(_ext.LAUNCHES)
+        srv.close()
+    (out_k, st_k), (out_p, st_p) = runs
+    assert st_k["launches"] == {**st_p["launches"], "ssd_scan": 3}
+    assert sum(st_p["launches"].values()) == 0
+    np.testing.assert_array_equal(out_k, out_p)
+    for a, b in zip(st_k["logits"], st_p["logits"]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())

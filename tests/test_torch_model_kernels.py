@@ -3,7 +3,8 @@ CPU) against the reference: B5 flash attention against the Pallas kernel
 run with ``interpret=True`` and against ``ref.flash_attention_ref``, B7
 the RG-LRU scan against ``ref.rglru_scan_ref`` and the model's
 associative ``lru_scan`` (the Pallas scan itself does not run on this
-jax, ROADMAP C1).
+jax, ROADMAP C1).  B6, the SSD scan, is tested in ``test_torch_ssm.py``;
+here only its wrapper's refusal to fall back on a CUDA tensor.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: attention atol 3e-5 / rtol 1e-4, as the reference's own
@@ -22,7 +23,7 @@ from repro.models.rglru import lru_scan as jlru_scan
 from repro_torch import _ext
 from repro_torch.kernels import (flash_attention, flash_attention_kernel,
                                  flash_attention_plain, rglru_scan,
-                                 rglru_scan_plain)
+                                 rglru_scan_plain, ssd_scan)
 from repro_torch.models.rglru import lru_scan
 
 ATTN_TOL = dict(atol=3e-5, rtol=1e-4)
@@ -199,6 +200,11 @@ def test_cuda_wrappers_never_fall_back(monkeypatch):
         flash_attention_kernel(q, k, v, scale=0.1)
     with pytest.raises(_ext.KernelBuildError):
         rglru_scan(a, x, h0)
+    sx = torch.zeros((1, 5, 2, 8))
+    sdt, slog, sb = torch.zeros((1, 5, 2)), torch.zeros(2), torch.zeros(
+        (1, 5, 1, 16))
+    with pytest.raises(_ext.KernelBuildError):
+        ssd_scan(sx, sdt, slog, sb, sb)
     # what the kernels do not take raises before any launch
     with pytest.raises(ValueError):
         flash_attention_kernel(q[..., :32], k[..., :32], v[..., :32],
@@ -210,4 +216,15 @@ def test_cuda_wrappers_never_fall_back(monkeypatch):
                                k, v, scale=0.1)             # not contiguous
     with pytest.raises(TypeError):
         rglru_scan(a.double(), x.double())
+    with pytest.raises(TypeError):
+        ssd_scan(sx.double(), sdt, slog, sb, sb)
+    with pytest.raises(ValueError):
+        ssd_scan(sx.transpose(2, 3).contiguous().transpose(2, 3), sdt, slog,
+                 sb, sb)                                  # not contiguous
+    with pytest.raises(ValueError):
+        ssd_scan(sx, sdt, slog, sb[..., :12].contiguous(),
+                 sb[..., :12].contiguous())                # n 12
+    off = torch.zeros(sb.numel() + 1)[1:].view(sb.shape)
+    with pytest.raises(ValueError):
+        ssd_scan(sx, sdt, slog, off, sb)                # B not on 16 bytes
     assert sum(_ext.LAUNCHES.values()) == 0

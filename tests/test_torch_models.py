@@ -309,7 +309,7 @@ def test_count_params_full_config():
 
 
 def test_unported_kinds_raise():
-    for arch in ("mamba2-130m", "deepseek-v3-671b", "whisper-large-v3",
+    for arch in ("deepseek-v3-671b", "whisper-large-v3",
                  "llama-3.2-vision-90b", "qwen2-moe-a2.7b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mdl.init_params(get_smoke_config(arch), device="cpu")

@@ -22,6 +22,7 @@ from repro_torch.launch.serve import Server
 from repro_torch.models.convert import params_from_jax
 
 ARCH = "recurrentgemma-9b"
+SSM_ARCH = "mamba2-130m"
 LOGIT_TOL = dict(atol=2e-4, rtol=1e-4)
 B, PROMPT, GEN = 3, 21, 6
 
@@ -40,10 +41,15 @@ def _reference_logits(jcfg, params, prompts, out):
     return want
 
 
-@pytest.mark.parametrize("n_layers", [4, 7])     # unrolled, scan layout
-def test_generate_matches_reference_server(tmp_path, n_layers):
-    jcfg = jget_smoke(ARCH).scaled(dtype="float32", n_layers=n_layers)
-    cfg = get_smoke_config(ARCH).scaled(dtype="float32", n_layers=n_layers)
+# the unrolled and scan layouts of recurrentgemma and of mamba2 (21
+# prompt tokens: not a multiple of mamba2's smoke ssm_chunk, 16)
+@pytest.mark.parametrize("arch,n_layers", [
+    pytest.param(ARCH, 4, id="4"), pytest.param(ARCH, 7, id="7"),
+    pytest.param(SSM_ARCH, 1, id="mamba2-1"),
+    pytest.param(SSM_ARCH, 3, id="mamba2-3")])
+def test_generate_matches_reference_server(tmp_path, arch, n_layers):
+    jcfg = jget_smoke(arch).scaled(dtype="float32", n_layers=n_layers)
+    cfg = get_smoke_config(arch).scaled(dtype="float32", n_layers=n_layers)
     prompts = np.random.default_rng(n_layers).integers(
         0, jcfg.vocab_real, (B, PROMPT)).astype(np.int32)
     jsrv = JServer(jcfg, root=tmp_path / "j", max_len=PROMPT + GEN + 8)
@@ -64,8 +70,9 @@ def test_generate_matches_reference_server(tmp_path, n_layers):
     assert stats["prefill_s"] > 0 and stats["tok_per_s"] > 0
 
 
-def test_kernel_and_plain_paths_serve_the_same_tokens(tmp_path):
-    cfg = get_smoke_config(ARCH).scaled(dtype="float32")
+@pytest.mark.parametrize("arch", [ARCH, SSM_ARCH])
+def test_kernel_and_plain_paths_serve_the_same_tokens(tmp_path, arch):
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab_real, (B, PROMPT)).astype(np.int32)
     outs = []
@@ -118,5 +125,12 @@ def test_default_device_raises_without_a_card(tmp_path, monkeypatch):
 def test_main_serves_the_smoke_model_on_the_cpu(tmp_path, capsys):
     serve.main(["--smoke", "--device", "cpu", "--batch", "2",
                 "--prompt-len", "12", "--gen", "3",
+                "--root", str(tmp_path / "m")])
+    assert "generated (2, 3) tokens" in capsys.readouterr().out
+
+
+def test_main_serves_mamba2_on_the_cpu(tmp_path, capsys):
+    serve.main(["--arch", SSM_ARCH, "--smoke", "--device", "cpu", "--batch",
+                "2", "--prompt-len", "19", "--gen", "3",
                 "--root", str(tmp_path / "m")])
     assert "generated (2, 3) tokens" in capsys.readouterr().out
