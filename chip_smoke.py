@@ -7,14 +7,16 @@ NVIDIA GPU.
 Phases; any failure exits non-zero, and no phase's failure is caught:
 
 1. Card and build: the card's name and power limit (nvidia-smi), the
-   torch and CUDA versions, and the one nvcc build of every
-   ``src/repro_torch/csrc/*.cu``.
+   torch and CUDA versions, the one nvcc build of every
+   ``src/repro_torch/csrc/*.cu`` with its ptxas lines, and the count of
+   tensor-core instructions in the SSD kernels' SASS (cuobjdump).
 2. Each CUDA kernel against its plain PyTorch version on the card over
    edge shapes, ops, dtypes and expression specs; int results must be
    equal, f32 min/max equal, f32 sums within ``F32_SUM_RTOL`` of the
    segment's sum of |v| (atomics add in another order), the heat scan
-   equal bit for bit (``[heat]``).  Each kernel is also timed at the
-   shape its path gives it, beside its bound, its plain version and,
+   equal bit for bit (``[heat]``).  Each kernel is also timed on the
+   device (CUDA events, the card kept busy while the host enqueues) at
+   the shape its path gives it, beside its bound, its plain version and,
    where one exists, one PyTorch library call; one ``heat_scores`` call
    at 262,144 objects is split into its host and device parts.
 3. The main path at full size: a store of 16 partitions x 4,194,304
@@ -79,6 +81,7 @@ STREAM_ELEMS, STREAM_ROWS, STREAM_PRODUCERS = 4096, 4096, 4
 STREAM_WINDOW_S, STREAM_DELTA = 0.256, 262_144
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12            # H100 SXM dense TF32 tensor cores
+TF32X3_FLOPS = TF32_FLOPS / 3  # B6 split-TF32 products; a reference only
 ATTN_RTOL = 1e-4               # B5 vs plain, relative to the row's max |o|
 SERVE_LOGIT_RTOL = 1e-3        # kernel vs plain path, of the step's max |logit|
 SERVE_ARCH, SERVE_PARAMS = "recurrentgemma-9b", 9_627_414_528
@@ -89,6 +92,7 @@ SSD_RTOL = 1e-4                # B6 vs plain, of the (batch, head)'s max |value|
 SSD_SEQ_RTOL = 1e-3            # B6 vs the sequential oracle (step-by-step
                                # decays against exponentiated cumsums)
 PROFILE_STEPS = 2              # decode steps traced after the comparison
+HOST_COVER_CYCLES = 2_000_000  # ~1 ms of card spin ahead of each timed call
 # (b, h, kv, sq, sk, hd, causal, window, softcap); the first is the
 # serving shape of recurrentgemma-9b's local-attention layers
 ATTN_CASES = ((4, 16, 1, 4000, 4000, 256, True, 2048, 0.0),
@@ -103,9 +107,10 @@ ATTN_CASES = ((4, 16, 1, 4000, 4000, 256, True, 2048, 0.0),
 SCAN_CASES = ((4, 4000, 4096, True), (4, 4000, 4096, False),
               (2, 1, 33, True), (3, 77, 100, False), (1, 4096, 31, True))
 # (b, s, h, p, n, g, chunk, initial state); the first two are the serving
-# shape of mamba2-130m's SSD layers, the others edge cases: s = 1,
-# partial chunks, s < chunk, g = 2 and g = h, p not a multiple of the
-# kernel's 16-column slice, and every state size the kernel takes
+# shape of mamba2-130m's SSD layers, the others edge cases: s = 1, s
+# around the kernel's 256-row chunk (255, 256, 257, 513) with and without
+# a state, s < chunk, g = 2 and g = h, p not a multiple of 16 or of 4,
+# two p slices, and every state size the kernel takes
 SSD_CASES = ((4, 16000, 24, 64, 128, 1, 256, True),
              (4, 16000, 24, 64, 128, 1, 256, False),
              (2, 1, 24, 64, 128, 1, 256, True),
@@ -116,7 +121,15 @@ SSD_CASES = ((4, 16000, 24, 64, 128, 1, 256, True),
              (3, 77, 8, 16, 16, 1, 16, True),
              (1, 130, 3, 40, 32, 3, 64, True),
              (1, 70, 2, 8, 256, 1, 32, True),
-             (1, 65, 2, 64, 64, 1, 64, False))
+             (1, 65, 2, 64, 64, 1, 64, False),
+             (2, 255, 8, 64, 128, 1, 256, False),
+             (2, 256, 8, 64, 128, 1, 256, True),
+             (2, 256, 8, 64, 128, 1, 256, False),
+             (2, 257, 8, 64, 128, 1, 256, True),
+             (2, 513, 8, 64, 128, 1, 256, True),
+             (2, 513, 8, 64, 128, 1, 256, False),
+             (1, 600, 4, 40, 256, 2, 256, True),
+             (1, 300, 2, 6, 32, 1, 64, True))
 SSD_SEQ_CASE = 6               # the SSD_CASES entry also held against the oracle
 ANALYTICS_CU = "src/repro_torch/csrc/analytics_kernels.cu"
 MODEL_CU = "src/repro_torch/csrc/model_kernels.cu"
@@ -166,7 +179,37 @@ def phase_card_and_build(torch, ext):
     for line in ext.build_log.splitlines():
         if any(w in line for w in ("registers", "Compiling entry", "spill")):
             log(f"[build] {line.strip()}")
+    log_tensor_core_sass(ext)
     return smi
+
+
+def log_tensor_core_sass(ext):
+    """Count the tensor-core instructions (HMMA/HGMMA) in the SASS of the
+    SSD kernels (B6), where the toolkit has cuobjdump; B6's kernels that
+    multiply must have some."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = shutil.which("cuobjdump") or (
+        str(Path(CUDA_HOME) / "bin" / "cuobjdump") if CUDA_HOME else None)
+    if tool is None or not Path(tool).is_file():
+        log("[build] cuobjdump not found: SASS not counted (see the ptxas "
+            "lines and csrc/ssm_kernels.cu)")
+        return
+    sass = subprocess.run([tool, "-sass", ext.library()._name],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if "ssd" in fn:
+                counts[fn] = 0
+        elif fn in counts and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    log(f"[build] tensor-core instructions (HMMA/HGMMA) in the SASS of "
+        f"the SSD kernels: {json.dumps(counts)}")
+    for mma in ("ssd_state_kernel", "ssd_out_kernel"):
+        if not any(v > 0 for k, v in counts.items() if mma in k):
+            fail(f"{mma} has no tensor-core instruction in its SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -291,8 +334,14 @@ def phase_kernels(torch, K, col, dev):
                     chk.same("segment_reduce", f"rows={n} segs={n_seg} "
                              f"op={op} {dt}", got, want, op, abs_sum)
 
+    # B3 takes a block per window of 1,024 elements or more, a warp
+    # below: both sides of that threshold, windows and slides that are not
+    # multiples of 4, and more than 65,535 windows
     windows = [(ROWS, WINDOW, WINDOW), (ROWS, WINDOW, 1024),
-               (1025, 64, 17), (4096, 4096, 4096), (1023, 8, 3)]
+               (1025, 64, 17), (4096, 4096, 4096), (1023, 8, 3),
+               (ROWS, 1024, 1024), (ROWS, 1023, 1023), (100_003, 1031, 13),
+               (ROWS, 8, 4), (300_000, 2048, 3)]
+    nan_cases = 0
     for n, w, s in windows:
         _, cols = data(n, 1)
         for op in OPS:
@@ -303,6 +352,22 @@ def phase_kernels(torch, K, col, dev):
                            if v.dtype == torch.float32 else None)
                 chk.same("window_reduce", f"n={n} window={w} slide={s} "
                          f"op={op} {v.dtype}", got, want, op, abs_sum)
+        # f32 min/max with NaNs in about one window in ten: equal to plain,
+        # NaN where plain has NaN
+        v = cols[3].clone()
+        v[torch.rand((n,), generator=gen, device=dev) < 0.1 / w] = \
+            float("nan")
+        for op in ("min", "max"):
+            got = K.window_reduce_tensor(v, w, s, op)
+            want = K.window_reduce_plain(v, w, s, op)
+            try:
+                torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                           equal_nan=True)
+            except AssertionError as e:
+                fail(f"window_reduce n={n} window={w} slide={s} op={op} "
+                     f"with NaNs: kernel and plain differ: {e}")
+            nan_cases += 1
+            chk.cases["window_reduce"] += 1
     # a sequence shorter than one window emits nothing, as in window_reduce
     short = K.window_reduce(cols[2][:100].cpu().numpy(), 128, device=dev)
     if short.shape != (0,) or short.dtype.name != "float32":
@@ -310,7 +375,9 @@ def phase_kernels(torch, K, col, dev):
     torch.cuda.synchronize()
     log(f"[kernels] kernel == plain on the card: {chk.cases} cases; "
         f"max abs error {chk.err} (f32 sums within {F32_SUM_RTOL} x "
-        f"sum|v|; ints and f32 min/max exact)")
+        f"sum|v|; ints and f32 min/max exact; window_reduce windows "
+        f"{windows} (n, window, slide), {nan_cases} of its cases f32 "
+        f"min/max over values with NaNs, equal with equal_nan)")
     return chk
 
 
@@ -430,9 +497,10 @@ def phase_model_kernels(torch, KA, KR, KS, chk, dev):
     separately), B5 within ATTN_RTOL of each query row's largest |o|
     (f32 products summed in another order than the plain matmuls), B6's
     y and final state within SSD_RTOL of each (batch, head)'s largest
-    |value| (64-row sub-chunks against the plain version's chunks: the
-    same function, other roundings), and at one small shape within
-    SSD_SEQ_RTOL of the sequential oracle."""
+    |value| (split-TF32 products and f64 cumsums against the plain
+    version's f32 matmuls and cumsums: the same function, other
+    roundings), and at one small shape within SSD_SEQ_RTOL of the
+    sequential oracle."""
     from repro_torch.models.ssm import ssd_reference
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
@@ -508,7 +576,8 @@ def phase_model_kernels(torch, KA, KR, KS, chk, dev):
         f"rglru_scan {chk.cases['rglru_scan']} cases bit for bit (with and "
         f"without h0, s=1, w not a multiple of 32); ssd_scan "
         f"{chk.cases['ssd_scan']} cases (serving shape with and without a "
-        f"state, s=1, partial chunks, g=2 and g=h, n 16-256), max abs "
+        f"state, s=1, s 255/256/257/513 with and without a state, g=2 "
+        f"and g=h, p 6/8/16/40/64, n 16-256), max abs "
         f"error {chk.err['ssd_scan']}, max error / (batch, head) max "
         f"{ssd_rel:.3e} (limit {SSD_RTOL}; {ssd_worst}), against "
         f"ssd_reference at "
@@ -519,14 +588,22 @@ def phase_model_kernels(torch, KA, KR, KS, chk, dev):
 # timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def device_ms(torch, fn, reps=10):
+def device_ms(torch, fn, reps=10, host=False):
     """Mean device time of ``fn`` with the 50 MB L2 flushed before each
-    run (the main path's inputs arrive fresh from the host)."""
+    run (the main path's inputs arrive fresh from the host).  The card
+    spins for ``HOST_COVER_CYCLES`` before the start event, so the host
+    has enqueued ``fn``'s launches by the time it starts: the events time
+    the device, not the Python and ctypes work of the call (which, for a
+    kernel shorter than that work, they would otherwise time).  With
+    ``host`` the card does not spin and the events take in that work too:
+    the time a call costs a path whose card waits on its host."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     fn()
     total = 0.0
     for _ in range(reps):
         flush.zero_()
+        if not host:
+            torch.cuda._sleep(HOST_COVER_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -614,14 +691,17 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
 
     # B3: tumbling window max over col(2) (query d)
     nw = ROWS // WINDOW
+    b3 = lambda: K.window_reduce_tensor(reading, WINDOW, WINDOW, "max")
+    b3_lib = lambda: reading.unfold(0, WINDOW, WINDOW).amax(1)
     out["window_reduce"] = dict(
-        ms=device_ms(torch, lambda: K.window_reduce_tensor(
-            reading, WINDOW, WINDOW, "max")),
+        ms=device_ms(torch, b3),
         plain_ms=device_ms(torch, lambda: K.window_reduce_plain(
             reading, WINDOW, WINDOW, "max")),
         bound_bytes=4 * ROWS + 4 * nw,
-        library_ms=device_ms(torch, lambda: reading.unfold(
-            0, WINDOW, WINDOW).amax(1)),
+        library_ms=device_ms(torch, b3_lib),
+        # per call with the host's work in it, as query (d) pays it
+        host_ms=device_ms(torch, b3, host=True),
+        library_host_ms=device_ms(torch, b3_lib, host=True),
         shape=f"n={ROWS} window={WINDOW} max int32")
 
     # B4: the heat scan over the extractor's hist_len x 262,144 objects;
@@ -680,25 +760,36 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
         plain_ms=device_ms(torch, lambda: KS.ssd_chunked(
             *args[:5], chunk, initial_state=args[5])),
         library_ms=None, bound_bytes=4 * io,
-        bound_flops=ssd_flops(b, s_, h, p, n, 1),
+        # f32 operands take the tensor cores' TF32 rate; the kernel's
+        # three products each (3xTF32) are its own cost, not the function's
+        bound_flops=ssd_flops(b, s_, h, p, n, 1), flops_rate=TF32_FLOPS,
         shape=f"b={b} s={s_} h={h} p={p} n={n} g={g} f32, counted at "
-        f"chunk 1; the kernel's 64-row sub-chunks do "
+        f"chunk 1; in 64-row chunks the form does "
         f"{ssd_flops(b, s_, h, p, n, 64)} FLOP, the reference's chunk "
         f"{chunk} {ssd_flops(b, s_, h, p, n, chunk)}")
+    log_ssd_launches(torch, lambda: KS.ssd_scan(
+        *args[:5], chunk=chunk, initial_state=args[5]))
     del args
 
     for name, r in out.items():
         bytes_ms = r["bound_bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = r.get("bound_flops", 0) / F32_FLOPS * 1e3
+        rate = r.get("flops_rate", F32_FLOPS)
+        ops_ms = r.get("bound_flops", 0) / rate * 1e3
         r["bound_ms"] = max(bytes_ms, ops_ms)
         r["bound_by"] = "operations" if ops_ms > bytes_ms else "bytes"
         extra = ""
         if "bound_flops" in r:
-            extra = (f"; {r['bound_flops']} f32 FLOP at {F32_FLOPS:.3g}/s "
-                     f"= {ops_ms:.4f} ms, at the TF32 tensor-core rate "
-                     f"{r['bound_flops'] / TF32_FLOPS * 1e3:.4f} ms, "
-                     f"achieved {r['bound_flops'] / r['ms'] / 1e9:.2f} "
+            extra = (f"; {r['bound_flops']} FLOP at {rate:.4g}/s = "
+                     f"{ops_ms:.4f} ms; at the f32 rate {F32_FLOPS:.3g}/s "
+                     f"{r['bound_flops'] / F32_FLOPS * 1e3:.4f} ms, at the "
+                     f"TF32 tensor-core rate "
+                     f"{r['bound_flops'] / TF32_FLOPS * 1e3:.4f} ms, at "
+                     f"3xTF32 {r['bound_flops'] / TF32X3_FLOPS * 1e3:.4f} "
+                     f"ms; achieved {r['bound_flops'] / r['ms'] / 1e9:.2f} "
                      f"TFLOP/s")
+        if "host_ms" in r:
+            extra += (f"; per call with the host's work: {r['host_ms']:.4f} "
+                      f"ms, library {r['library_host_ms']:.4f} ms")
         log(f"[timing] {name} ({r['shape']}): {r['ms']:.4f} ms/launch, "
             f"plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
@@ -706,6 +797,29 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
             f"({r['bound_bytes']} B at {HBM_BYTES_PER_S:.3g} B/s = "
             f"{bytes_ms:.4f} ms{extra})")
     return out
+
+
+def log_ssd_launches(torch, call):
+    """Device ms of each of B6's launches in one ``call`` (torch.profiler,
+    self device time by kernel name)."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        m = re.search(r"ssd_\w+_kernel", e.key)
+        if m and e.device_type == DeviceType.CUDA:
+            parts[m.group(0)] = e.self_device_time_total / e.count / 1e3
+    if not any(parts.values()):
+        log("[timing] ssd_scan launches: the profiler saw no device time "
+            "(not measured)")
+        return
+    log(f"[timing] ssd_scan launches in one call (torch.profiler, device "
+        f"ms): {json.dumps(parts)}")
 
 
 def phase_heat_split(torch, H, dev):

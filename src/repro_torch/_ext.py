@@ -54,7 +54,7 @@ _SIGNATURES = {
                              _I, _F, _P),
     "sage_rglru_scan": (_P, _P, _P, _I64, _I64, _I64, _P, _P),
     "sage_ssd_scan": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I,
-                      _P, _P, _P),
+                      _P, _P, _P, _P, _P, _I, _I, _P),
     "sage_error_string": (_I,),
 }
 

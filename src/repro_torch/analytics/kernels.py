@@ -498,8 +498,9 @@ def window_reduce_plain(values: torch.Tensor, window: int, slide: int,
 def window_reduce_tensor(values: torch.Tensor, window: int, slide: int,
                          op: str) -> torch.Tensor:
     """values int32/float32 (n,) with n >= window.  CUDA tensors launch
-    ``sage_window_reduce`` (one thread per window, read straight from
-    the sequence); CPU tensors run the plain version."""
+    ``sage_window_reduce`` (a block per window of 1,024 elements or more,
+    else a warp, folding coalesced 16-byte loads straight from the
+    sequence); CPU tensors run the plain version."""
     if not values.is_cuda:
         return window_reduce_plain(values, window, slide, op)
     _check_cuda("window_reduce", values)

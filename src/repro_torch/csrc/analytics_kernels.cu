@@ -299,31 +299,129 @@ segment_kernel(const T* values, const int32_t* ids, int64_t n, T* g_acc,
 }
 
 // ---------------------------------------------------------------------------
-// B3: window reduce, one thread per window, read straight from the
+// B3: window reduce, many threads folding each window straight from the
 // sequence (no (n_windows, window) gather)
+//
+// What bounds it: bytes (each element read once by a tumbling window).
+// A window of kBlockWindow elements or more takes a block of 256 threads,
+// a shorter one a warp (8 windows a block): at 1,024 elements a block's
+// one sweep of 16-byte loads (256 x 4 elements) already covers the
+// window, so a longer window keeps every thread busy, and below it a
+// block would leave threads idle while a warp's 32 lanes still cover the
+// window in a few sweeps.  Query (d)'s 1,024 windows of 4,096 rows thus
+// run as 1,024 blocks, not 4.  Lanes read consecutive int4/float4
+// vectors (coalesced); values + w*slide lies on 16 bytes only when
+// w*slide % 4 == 0, so each lane folds a scalar head up to the first
+// aligned element, then the vectors, then a scalar tail.  The fold runs in
+// registers, then a __shfl_xor_sync tree within the warp, then across the
+// warps in shared memory.  f32 sums change their order (held to the
+// caller's 1e-4 of the window's sum of |v|); int32 sums wrap, so their
+// order does not matter; f32 min/max propagate NaN as amin/amax do.
 // ---------------------------------------------------------------------------
 
+constexpr int64_t kBlockWindow = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int64_t kMaxWindowGrid = int64_t(1) << 20;   // grid-stride above
+
+template <typename T, int OP>
+__device__ __forceinline__ T combine(T a, T b) {
+  if constexpr (kIsF32<T>) {
+    return OP == kSum ? __fadd_rn(a, b)
+         : OP == kMin ? nan_min(a, b) : nan_max(a, b);
+  } else {
+    return OP == kSum ? wrap_add(a, b)
+         : OP == kMin ? (b < a ? b : a) : (b > a ? b : a);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T from_bits(int32_t x) {
+  if constexpr (kIsF32<T>) return bits_f(x);
+  else return x;
+}
+
+template <typename T, int OP>
+__device__ __forceinline__ T combine4(T acc, int4 q) {
+  acc = combine<T, OP>(acc, from_bits<T>(q.x));
+  acc = combine<T, OP>(acc, from_bits<T>(q.y));
+  acc = combine<T, OP>(acc, from_bits<T>(q.z));
+  return combine<T, OP>(acc, from_bits<T>(q.w));
+}
+
+// lane `lane` of `lanes` folds its share of v[0, len) (T is 4 bytes)
+template <typename T, int OP>
+__device__ __forceinline__ T fold_window(const T* __restrict__ v, int64_t len,
+                                         int lane, int lanes) {
+  T acc = identity<T, OP>();
+  int64_t head = (4 - int64_t((reinterpret_cast<uintptr_t>(v) >> 2) & 3)) & 3;
+  if (head > len) head = len;
+  if (lane < head) acc = combine<T, OP>(acc, v[lane]);
+  const int4* q = reinterpret_cast<const int4*>(v + head);
+  const int64_t nq = (len - head) >> 2;
+  int64_t i = lane;
+  for (; i + 3 * lanes < nq; i += 4 * lanes) {   // 4 loads in flight a lane
+    const int4 a = q[i], b = q[i + lanes], c = q[i + 2 * lanes],
+               d = q[i + 3 * lanes];
+    acc = combine4<T, OP>(acc, a);
+    acc = combine4<T, OP>(acc, b);
+    acc = combine4<T, OP>(acc, c);
+    acc = combine4<T, OP>(acc, d);
+  }
+  for (; i < nq; i += lanes) acc = combine4<T, OP>(acc, q[i]);
+  const int64_t tail = head + 4 * nq;
+  if (lane < len - tail) acc = combine<T, OP>(acc, v[tail + lane]);
+  return acc;
+}
+
+template <typename T, int OP>
+__device__ __forceinline__ T warp_fold(T acc) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    acc = combine<T, OP>(acc, __shfl_xor_sync(0xffffffffu, acc, o));
+  return acc;
+}
+
+// one window a block (window >= kBlockWindow)
 template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)
-window_kernel(const T* values, int64_t window, int64_t slide,
-              int64_t n_windows, T* out) {
-  const int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= n_windows) return;
-  const T* v = values + w * slide;
-  T acc = identity<T, OP>();
-  for (int64_t j = 0; j < window; ++j) {
-    const T x = v[j];
+window_block_kernel(const T* __restrict__ values, int64_t window,
+                    int64_t slide, int64_t n_windows, T* __restrict__ out) {
+  __shared__ T part[kWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int64_t w = blockIdx.x; w < n_windows; w += gridDim.x) {
     if constexpr (OP == kCount) {
-      acc = acc + T(1);
-    } else if constexpr (kIsF32<T>) {
-      acc = OP == kSum ? __fadd_rn(acc, x)
-          : OP == kMin ? nan_min(acc, x) : nan_max(acc, x);
-    } else {
-      acc = OP == kSum ? wrap_add(acc, x)
-          : OP == kMin ? (x < acc ? x : acc) : (x > acc ? x : acc);
+      if (threadIdx.x == 0) out[w] = T(window);
+      continue;
     }
+    T acc = warp_fold<T, OP>(
+        fold_window<T, OP>(values + w * slide, window, threadIdx.x, kThreads));
+    if (lane == 0) part[warp] = acc;
+    __syncthreads();
+    if (warp == 0) {
+      acc = lane < kWarps ? part[lane] : identity<T, OP>();
+      acc = warp_fold<T, OP>(acc);
+      if (lane == 0) out[w] = acc;
+    }
+    __syncthreads();   // part[] is read before the next window writes it
   }
-  out[w] = acc;
+}
+
+// one window a warp (window < kBlockWindow), kWarps windows a block
+template <typename T, int OP>
+__global__ void __launch_bounds__(kThreads)
+window_warp_kernel(const T* __restrict__ values, int64_t window,
+                   int64_t slide, int64_t n_windows, T* __restrict__ out) {
+  const int lane = threadIdx.x % 32;
+  for (int64_t w = int64_t(blockIdx.x) * kWarps + threadIdx.x / 32;
+       w < n_windows; w += int64_t(gridDim.x) * kWarps) {
+    if constexpr (OP == kCount) {
+      if (lane == 0) out[w] = T(window);
+      continue;
+    }
+    const T acc = warp_fold<T, OP>(
+        fold_window<T, OP>(values + w * slide, window, lane, 32));
+    if (lane == 0) out[w] = acc;
+  }
 }
 
 int sm_count() {
@@ -388,9 +486,17 @@ cudaError_t launch_segment(const T* v, const int32_t* ids, int64_t n, T* acc,
 template <typename T, int OP>
 cudaError_t launch_window(const T* v, int64_t window, int64_t slide,
                           int64_t n_windows, T* out, cudaStream_t s) {
-  const int64_t blocks = (n_windows + kThreads - 1) / kThreads;
-  window_kernel<T, OP><<<(unsigned)blocks, kThreads, 0, s>>>(
-      v, window, slide, n_windows, out);
+  if (window >= kBlockWindow) {
+    const int64_t blocks = n_windows < kMaxWindowGrid ? n_windows
+                                                      : kMaxWindowGrid;
+    window_block_kernel<T, OP><<<(unsigned)blocks, kThreads, 0, s>>>(
+        v, window, slide, n_windows, out);
+  } else {
+    int64_t blocks = (n_windows + kWarps - 1) / kWarps;
+    if (blocks > kMaxWindowGrid) blocks = kMaxWindowGrid;
+    window_warp_kernel<T, OP><<<(unsigned)blocks, kThreads, 0, s>>>(
+        v, window, slide, n_windows, out);
+  }
   return cudaGetLastError();
 }
 

@@ -26,15 +26,18 @@ import torch.nn.functional as F
 from repro_torch._ext import count_launch
 
 KERNEL_STATES = (16, 32, 64, 128, 256)   # state sizes n the kernel takes
+# rows per chunk of the kernel's states and per sub-chunk of its scores:
+# the scratch is sized by them, and the kernel refuses any other pair
+KERNEL_CHUNK = 256
+KERNEL_SUB = 64
 
 
-def _segsum(log_a: torch.Tensor) -> torch.Tensor:
-    """(..., L) -> (..., L, L) lower-triangular segment sums (-inf
-    above the diagonal)."""
-    L = log_a.shape[-1]
-    cs = torch.cumsum(log_a, dim=-1)
-    diff = cs[..., :, None] - cs[..., None, :]        # sum over (j, i]
-    mask = torch.ones((L, L), dtype=torch.bool, device=log_a.device).tril()
+def _segsum(cs: torch.Tensor) -> torch.Tensor:
+    """(..., L) inclusive cumsum -> (..., L, L) lower-triangular segment
+    sums cs_i - cs_j, the sum over (j, i] (-inf above the diagonal)."""
+    L = cs.shape[-1]
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((L, L), dtype=torch.bool, device=cs.device).tril()
     return diff.masked_fill_(~mask, float("-inf"))
 
 
@@ -69,18 +72,27 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     dA = (dtc * A).permute(0, 1, 3, 2)                 # (b, nc, h, L)
     dt_hl = dtc.permute(0, 1, 3, 2)                    # (b, nc, h, L)
 
+    # the in-chunk cumsum of dA in f64: an f32 one reaches ~-2,800 in a
+    # 256-row chunk at A = -16, and its ulp there (2.4e-4) would land in
+    # every decay.  The L x L decays take it as hi + lo in x's dtype,
+    # exp(hi_i - hi_j) with exp(lo_i) and exp(-lo_j) as row and column
+    # factors, so they cost no pass more than one f32 cumsum would.
+    cs = torch.cumsum(dA.double(), dim=-1)             # (b, nc, h, L)
+    hi = cs.to(dA.dtype)
+    lo = (cs - hi).to(dA.dtype)
+
     # intra-chunk (diagonal blocks): Y = (C B^T . decay . causal) @ (dt*x)
     scores = torch.einsum("bclgn,bcsgn->bcgls", Cc, Bc)   # (b,nc,g,L,L)
-    gated = _segsum(dA).exp_().view(b, nc, g, r, L, L)
+    gated = _segsum(hi).exp_().view(b, nc, g, r, L, L)
     gated.mul_(scores[:, :, :, None]).mul_(
-        dt_hl.reshape(b, nc, g, r, 1, L))
+        (dt_hl * torch.exp(-lo)).reshape(b, nc, g, r, 1, L))
     y_diag = torch.matmul(gated.view(b, nc, h, L, L),
                           xc.permute(0, 1, 3, 2, 4))   # (b,nc,h,L,p)
+    y_diag.mul_(torch.exp(lo)[..., None])
     del gated, scores
 
     # chunk-final states: S_c = sum_t a(t->end) * dt_t * B_t (x) x_t
-    cum = torch.cumsum(dA, dim=-1)
-    decay_to_end = torch.exp(cum[..., -1:] - cum)      # (b,nc,h,L)
+    decay_to_end = torch.exp(cs[..., -1:] - cs).to(dA.dtype)  # (b,nc,h,L)
     xw = xc * (decay_to_end * dt_hl).permute(0, 1, 3, 2)[..., None]
     states = torch.einsum("bclgrp,bclgn->bcgrpn",
                           xw.view(b, nc, L, g, r, p), Bc)
@@ -99,7 +111,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     # off-diagonal contribution: C_t . decay(start->t) . S_prev
     y_off = torch.einsum("bclgn,bcgrpn->bcgrlp", Cc,
                          prev_states.view(b, nc, g, r, p, n))
-    y_off = y_off.reshape(b, nc, h, L, p) * torch.exp(cum)[..., None]
+    y_off = y_off.reshape(b, nc, h, L, p) * torch.exp(cs).to(
+        dA.dtype)[..., None]
     y = (y_diag + y_off).permute(0, 1, 3, 2, 4).reshape(b, nc * L, h, p)
     return y[:, :s], carry
 
@@ -132,10 +145,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (b, s, h, p), final state (b, h, p, n)).  A CUDA
     tensor launches ``sage_ssd_scan`` (f32, contiguous, n in
-    ``KERNEL_STATES``), which walks the sequence in 64-row sub-chunks:
-    the chunked form is exact for any chunk length, so ``chunk`` only
-    sets the plain version's chunks and the two differ by rounding.  A
-    CPU tensor runs ``ssd_chunked``."""
+    ``KERNEL_STATES``): its four kernels take each 64-row sub-chunk's
+    C·Bᵀ once per group and the state at every ``KERNEL_CHUNK`` rows
+    through scratch allocated here ((b, g, s/64, 64, 64) and (b, h, nc,
+    p, n) f32), and walk each chunk in ``KERNEL_SUB``-row sub-chunks on
+    the tensor cores (split TF32).  The chunked form is exact for any chunk
+    length, so ``chunk`` only sets the plain version's chunks and the two
+    differ by rounding.  A CPU tensor runs ``ssd_chunked``."""
     _check(x, dt, a_log, B, C, initial_state)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -157,6 +173,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                          f"{KERNEL_STATES}, got {n}")
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    nc = -(-s // KERNEL_CHUNK)
+    states = torch.empty((b, h, nc, p, n), dtype=torch.float32,
+                         device=x.device)
+    decay = torch.empty((b, h, nc), dtype=torch.float32, device=x.device)
+    scores = torch.empty((b, g, -(-s // KERNEL_SUB), KERNEL_SUB, KERNEL_SUB),
+                         dtype=torch.float32, device=x.device)
     from repro_torch import _ext
     lib = _ext.library()
     with torch.cuda.device(x.device):
@@ -165,6 +187,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
             C.data_ptr(),
             None if initial_state is None else initial_state.data_ptr(),
             b, s, h, p, g, n, y.data_ptr(), final.data_ptr(),
+            states.data_ptr(), decay.data_ptr(), scores.data_ptr(),
+            KERNEL_CHUNK, KERNEL_SUB,
             torch.cuda.current_stream(x.device).cuda_stream)
     _ext.check(lib, err, "ssd_scan")
     count_launch("ssd_scan")

@@ -59,9 +59,16 @@ def test_segment_kernel_matches_plain(dev, n, n_seg, op, dt):
     _close(got, want, op, K.segment_reduce_plain(v.abs(), ids, n_seg, "sum"))
 
 
-@pytest.mark.parametrize("n,window,slide", [(1025, 64, 17), (70000, 4096,
-                                                             4096),
-                                            (4096, 4096, 1)])
+# B3 takes a block per window of 1,024 elements or more, a warp below:
+# windows on both sides of that threshold, windows and slides that are not
+# multiples of 4 (unaligned heads and tails), and more than 65,535 windows
+WINDOW_CASES = [(1025, 64, 17), (70000, 4096, 4096), (4096, 4096, 1),
+                (20000, 1024, 1024), (20000, 1023, 1023),
+                (100003, 1031, 13), (1023, 7, 3), (70000, 3, 1),
+                (300000, 2048, 3)]
+
+
+@pytest.mark.parametrize("n,window,slide", WINDOW_CASES)
 @pytest.mark.parametrize("op", OPS)
 @pytest.mark.parametrize("dt", ["int32", "float32"])
 def test_window_kernel_matches_plain(dev, n, window, slide, op, dt):
@@ -71,6 +78,21 @@ def test_window_kernel_matches_plain(dev, n, window, slide, op, dt):
     want = K.window_reduce_plain(v, window, slide, op)
     _close(got, want, op, K.window_reduce_plain(v.abs(), window, slide,
                                                 "sum"))
+
+
+@pytest.mark.parametrize("n,window,slide", WINDOW_CASES)
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_window_kernel_propagates_nan(dev, n, window, slide, op):
+    """f32 min/max over values with NaNs (about one window in ten holds
+    one) equal plain amin/amax exactly, NaN where plain has NaN."""
+    _, _, v = _data(dev, n, 1, window + 1)
+    g = torch.Generator(device=dev)
+    g.manual_seed(n)
+    v[torch.rand((n,), generator=g, device=dev) < 0.1 / window] = \
+        float("nan")
+    got = K.window_reduce_tensor(v, window, slide, op)
+    want = K.window_reduce_plain(v, window, slide, op)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
 SPECS = [((col(1) % 7) == 3) | ~(col(0) < 0), (col(0) / 3) > 10.5, None]
@@ -265,6 +287,16 @@ def test_server_kernel_path_matches_plain_path_on_cuda(dev, tmp_path):
 SSD_CASES = [(2, 1, 24, 64, 128, 1, 256, True),
              (2, 255, 8, 64, 128, 1, 256, True),
              (2, 257, 8, 64, 128, 1, 256, False),
+             # the kernel's chunk is 256 rows: s = 255, 256, 257 and 513,
+             # with and without a state
+             (2, 255, 8, 64, 128, 1, 256, False),
+             (2, 256, 8, 64, 128, 1, 256, True),
+             (2, 256, 8, 64, 128, 1, 256, False),
+             (2, 257, 8, 64, 128, 1, 256, True),
+             (2, 513, 8, 64, 128, 1, 256, True),
+             (2, 513, 8, 64, 128, 1, 256, False),
+             (1, 600, 4, 40, 256, 2, 256, True),     # two p slices at n 256
+             (1, 300, 2, 6, 32, 1, 64, True),        # p % 4 != 0
              (3, 100, 6, 64, 128, 1, 256, True),
              (2, 300, 4, 64, 128, 2, 256, True),
              (3, 77, 8, 16, 16, 1, 16, True),
@@ -294,6 +326,24 @@ def test_ssd_kernel_matches_plain(dev, b, s, h, p, n, g, chunk, with_state):
         assert gt.shape == w.shape and gt.dtype == torch.float32
         scale = w.abs().amax(dim=dims, keepdim=True)
         assert bool(((gt - w).abs() <= 1e-4 * scale).all())
+
+
+@pytest.mark.parametrize("const,value", [("KERNEL_CHUNK", 128),
+                                         ("KERNEL_SUB", 32)])
+def test_ssd_kernel_refuses_scratch_of_other_steps(dev, monkeypatch, const,
+                                                   value):
+    """Scratch sized by row steps other than the kernel's own is refused
+    before any launch, not written past."""
+    from repro_torch import _ext
+    from repro_torch.kernels import ssd
+    monkeypatch.setattr(ssd, const, value)
+    x = torch.randn(1, 300, 2, 8, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn(1, 300, 2, device=dev))
+    B = torch.randn(1, 300, 1, 16, device=dev)
+    _ext.reset_launch_counts()
+    with pytest.raises(_ext.KernelLaunchError, match="ssd_scan"):
+        ssd.ssd_scan(x, dt, torch.zeros(2, device=dev), B, B.clone())
+    assert _ext.LAUNCHES["ssd_scan"] == 0
 
 
 def test_mamba2_server_kernel_path_matches_plain_path_on_cuda(dev, tmp_path):
