@@ -8,8 +8,9 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
 
 1. Card and build: the card's name and power limit (nvidia-smi), the
    torch and CUDA versions, the one nvcc build of every
-   ``src/repro_torch/csrc/*.cu`` with its ptxas lines, and the count of
-   tensor-core instructions in the SSD kernels' SASS (cuobjdump).
+   ``src/repro_torch/csrc/*.cu`` with its ptxas lines (B5 and B7 must
+   not spill), and the count of tensor-core instructions in the SASS of
+   the flash-attention and SSD kernels (cuobjdump).
 2. Each CUDA kernel against its plain PyTorch version on the card over
    edge shapes, ops, dtypes and expression specs; int results must be
    equal, f32 min/max equal, f32 sums within ``F32_SUM_RTOL`` of the
@@ -60,6 +61,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -102,10 +104,18 @@ ATTN_CASES = ((4, 16, 1, 4000, 4000, 256, True, 2048, 0.0),
               (2, 4, 2, 200, 200, 128, False, 50, 30.0),
               (1, 4, 1, 45, 300, 64, False, 0, 0.0),        # sq < sk
               (3, 6, 3, 1000, 1000, 64, True, 256, 30.0),
-              (1, 1, 1, 1, 1, 64, True, 0, 0.0))
+              (1, 1, 1, 1, 1, 64, True, 0, 0.0),
+              # hd 256 with sq/sk not multiples of the 16-key tile or the
+              # 128-row query tile, the window's edge inside a tile
+              (1, 16, 1, 1000, 1000, 256, True, 333, 30.0),
+              (2, 4, 2, 77, 1001, 256, False, 0, 30.0),   # sq < sk
+              (1, 8, 2, 250, 250, 256, True, 17, 0.0))    # GQA, window < tile
 # (b, s, w, h0); the first two are the serving shape of the RG-LRU layers
+# s not a multiple of the 32-step stage, w not a multiple of the 32-channel
+# block (16-byte copies at w % 4 == 0, 4-byte ones otherwise)
 SCAN_CASES = ((4, 4000, 4096, True), (4, 4000, 4096, False),
-              (2, 1, 33, True), (3, 77, 100, False), (1, 4096, 31, True))
+              (2, 1, 33, True), (3, 77, 100, False), (1, 4096, 31, True),
+              (2, 4001, 4100, True), (1, 33, 4097, False))
 # (b, s, h, p, n, g, chunk, initial state); the first two are the serving
 # shape of mamba2-130m's SSD layers, the others edge cases: s = 1, s
 # around the kernel's 256-row chunk (255, 256, 257, 513) with and without
@@ -176,17 +186,28 @@ def phase_card_and_build(torch, ext):
     ext.library()
     log(f"[build] {time.perf_counter() - t0:.2f} s (nvcc "
         f"{ext.build_seconds:.2f} s)")
+    entry, spills = None, []
     for line in ext.build_log.splitlines():
         if any(w in line for w in ("registers", "Compiling entry", "spill")):
             log(f"[build] {line.strip()}")
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "spill" in line and entry and any(
+                k in entry for k in ("flash_attention_kernel",
+                                     "rglru_scan_kernel")):
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+                spills.append(entry)
+    if spills:
+        fail(f"B5/B7 kernels spill registers: {spills}")
     log_tensor_core_sass(ext)
     return smi
 
 
 def log_tensor_core_sass(ext):
     """Count the tensor-core instructions (HMMA/HGMMA) in the SASS of the
-    SSD kernels (B6), where the toolkit has cuobjdump; B6's kernels that
-    multiply must have some."""
+    flash-attention (B5) and SSD (B6) kernels, where the toolkit has
+    cuobjdump; every one of their kernels that multiplies must have
+    some."""
     from torch.utils.cpp_extension import CUDA_HOME
     tool = shutil.which("cuobjdump") or (
         str(Path(CUDA_HOME) / "bin" / "cuobjdump") if CUDA_HOME else None)
@@ -201,13 +222,14 @@ def log_tensor_core_sass(ext):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            if "ssd" in fn:
+            if "ssd" in fn or "flash_attention" in fn:
                 counts[fn] = 0
         elif fn in counts and ("HMMA" in line or "HGMMA" in line):
             counts[fn] += 1
     log(f"[build] tensor-core instructions (HMMA/HGMMA) in the SASS of "
-        f"the SSD kernels: {json.dumps(counts)}")
-    for mma in ("ssd_state_kernel", "ssd_out_kernel"):
+        f"the flash-attention and SSD kernels: {json.dumps(counts)}")
+    for mma in ("flash_attention_kernel", "ssd_state_kernel",
+                "ssd_out_kernel"):
         if not any(v > 0 for k, v in counts.items() if mma in k):
             fail(f"{mma} has no tensor-core instruction in its SASS")
 
@@ -571,10 +593,11 @@ def phase_model_kernels(torch, KA, KR, KS, chk, dev):
     log(f"[model-kernels] kernel == plain on the card: flash_attention "
         f"{chk.cases['flash_attention']} cases (MHA/GQA/MQA, window 0 and "
         f">0, softcap 0 and 30, causal and not, unaligned sq/sk, hd "
-        f"64/128/256), max abs error {chk.err['flash_attention']}, max "
-        f"error / row max |o| {worst_rel:.3e} (limit {ATTN_RTOL}); "
+        f"64/128/256, window edges inside a key tile), max abs error "
+        f"{chk.err['flash_attention']}, max error / row max |o| "
+        f"{worst_rel:.3e} (limit {ATTN_RTOL}); "
         f"rglru_scan {chk.cases['rglru_scan']} cases bit for bit (with and "
-        f"without h0, s=1, w not a multiple of 32); ssd_scan "
+        f"without h0, s=1, s and w not multiples of 32, w of 4); ssd_scan "
         f"{chk.cases['ssd_scan']} cases (serving shape with and without a "
         f"state, s=1, s 255/256/257/513 with and without a state, g=2 "
         f"and g=h, p 6/8/16/40/64, n 16-256), max abs "
@@ -733,7 +756,10 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
         library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k16, v16, attn_mask=mask, scale=kw["scale"])),
         bound_bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
-        bound_flops=flops, shape=f"b={b} h={h} kv={kv} s={sq} hd={hd} "
+        # f32 operands take the tensor cores' TF32 rate; the kernel's
+        # three products each (3xTF32) are its own cost, as B6's
+        bound_flops=flops, flops_rate=TF32_FLOPS,
+        shape=f"b={b} h={h} kv={kv} s={sq} hd={hd} "
         f"window={window} f32 ({pairs} visible pairs per head)")
     del q, k, v, k16, v16, mask
 
@@ -787,6 +813,9 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
                      f"3xTF32 {r['bound_flops'] / TF32X3_FLOPS * 1e3:.4f} "
                      f"ms; achieved {r['bound_flops'] / r['ms'] / 1e9:.2f} "
                      f"TFLOP/s")
+        else:
+            extra = (f"; achieved {r['bound_bytes'] / r['ms'] / 1e6:.1f} "
+                     f"GB/s")
         if "host_ms" in r:
             extra += (f"; per call with the host's work: {r['host_ms']:.4f} "
                       f"ms, library {r['library_host_ms']:.4f} ms")
@@ -802,7 +831,6 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
 def log_ssd_launches(torch, call):
     """Device ms of each of B6's launches in one ``call`` (torch.profiler,
     self device time by kernel name)."""
-    import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()

@@ -5,10 +5,11 @@ started together, and one more ``nvcc`` call links the objects into one
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds, and ``ninja`` is not needed), loaded with ``ctypes``,
 which releases the interpreter lock during each launch call.  The library
-lands in ``_build/`` beside this file, named by a hash of all the
-sources and the flags, so an edited source never loads a stale build; a
-build goes to a temporary name and is renamed into place, so a
-concurrent process never loads half a file.
+lands in ``_build/`` beside this file, named by a hash of the flags and
+of every source and header (``csrc/*.cu``, ``csrc/*.cuh``), so an edited
+source or header never loads a stale build; a build goes to a temporary
+name and is renamed into place, so a concurrent process never loads half
+a file.
 
 There is no fallback: a missing ``nvcc``, a failed build or a failed
 load raises.  Loading is serialised by a lock, because the analytics
@@ -97,13 +98,20 @@ def _nvcc() -> str:
                            "PATH); the CUDA kernels cannot be built")
 
 
+def library_path(csrc: Path = CSRC) -> Path:
+    """Where the library built from ``csrc`` lands: named by a hash of
+    NVCC_FLAGS and of the name and bytes of every ``*.cu`` source and
+    every ``*.cuh`` header they include."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"sage_kernels-{h.hexdigest()[:16]}.so"
+
+
 def _build() -> ctypes.CDLL:
     """Compile SOURCES unless their library exists, then load it."""
     global build_seconds, build_log
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.name.encode() + b"\0" + src.read_bytes())
-    out = BUILD_DIR / f"sage_kernels-{h.hexdigest()[:16]}.so"
+    out = library_path()
     t0 = time.perf_counter()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -52,15 +52,16 @@
 //
 // Tensor cores: every product (C B^T, C S^T, G x and (x w)^T B) runs as
 // mma.sync.aligned.m16n8k8 TF32 with fragments loaded from shared memory
-// by each lane.  mma.sync, not wgmma: each operand is split in registers
-// as it is loaded (below), which wgmma, reading its shared-memory
-// operands itself (and K-major only for tf32), cannot do without hi and
-// lo copies of every tile, and the tiles that contract over rows (x for
-// G x, B and x w for the state) would have to be staged transposed.
-// Split TF32 (3xTF32): a = hi + lo with hi = cvt.rna.tf32(a) and lo =
-// cvt.rna.tf32(a - hi); a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b with f32
-// accumulators, kept as independent chains, about f32's accuracy where
-// plain TF32 keeps ~3 digits (the CPU emulation of
+// by each lane (the helpers are in tf32_mma.cuh, shared with B5).
+// mma.sync, not wgmma: each operand is split in registers as it is loaded
+// (below), which wgmma, reading its shared-memory operands itself (and
+// K-major only for tf32), cannot do without hi and lo copies of every
+// tile, and the tiles that contract over rows (x for G x, B and x w for
+// the state) would have to be staged transposed.  Split TF32 (3xTF32): a
+// = hi + lo with hi = a rounded to tf32 as cvt.rna.tf32 rounds it and lo =
+// a - hi (truncated by the tensor cores); a b ~ lo_a hi_b + hi_a lo_b +
+// hi_a hi_b with f32 accumulators, kept as independent chains, about
+// f32's accuracy where plain TF32 keeps ~3 digits (the CPU emulation of
 // tests/test_torch_ssd_split.py holds it to the sequential oracle).  The
 // cumsums of dt A are f64 (at A = -16 an f32 scan left 6.1e-5 of error in
 // exp of their differences), each decay rounded once; exp is expf.
@@ -89,7 +90,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
+
+using namespace sage_mma;   // cp.async, split-TF32 fragments and products
 
 constexpr int kL = 64;          // rows per sub-chunk
 constexpr int kLc = 256;        // rows per chunk: the states' step
@@ -139,26 +144,6 @@ struct StateLayout {
       sizeof(float) * kSum + sizeof(double) * (kThreads1 / 32);
 };
 
-// ---- asynchronous copies (zero-filled where `ok` is false) ----------------
-
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int K>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(K) : "memory");
-}
-
 // rows [0, rows) of a (kL x W) tile from rows `ld` floats apart, columns
 // [0, cols) (cols % 4 == 0 when `vec`); the rest zero
 template <int W, int THREADS>
@@ -178,119 +163,6 @@ __device__ __forceinline__ void stage_tile(float* dst, int dst_ld,
       cp4(dst + r * dst_ld + c, ok ? src + r * ld + c : src, ok);
     }
   }
-}
-
-// ---- split-TF32 tensor-core products ---------------------------------------
-//
-// m16n8k8 fragments (lane = 4 g + t): A holds rows g, g + 8 and B column g;
-// the accumulator (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).  The
-// contraction index is permuted within each 8-step (A's and B's k = t is
-// element 2t, k = t + 4 element 2t + 1; a sum does not care), so a lane's
-// two k values are adjacent and a row-major operand loads as one float2.
-
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
-// the hi hi products and the two small cross terms, in three
-// independent chains (pass 3), or two (pass 1, whose 8 tiles a warp would
-// otherwise spill)
-template <int CHAINS>
-struct Acc {
-  float big[4], lh[4], hl[4];
-};
-template <>
-struct Acc<2> {
-  float big[4], lh[4];
-};
-
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
-  const float rest = __fsub_rn(v, __uint_as_float(hi));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b to about f32 accuracy
-template <int CHAINS>
-__device__ __forceinline__ void mma3(Acc<CHAINS>& d, const FragA& a,
-                                     const FragB& b) {
-  mma_tf32(d.lh, a.lo, b.hi);
-  if constexpr (CHAINS == 3) mma_tf32(d.hl, a.hi, b.lo);
-  else mma_tf32(d.lh, a.hi, b.lo);
-  mma_tf32(d.big, a.hi, b.hi);
-}
-
-template <int CHAINS>
-__device__ __forceinline__ void zero(Acc<CHAINS>& d) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    d.big[e] = d.lh[e] = 0.f;
-    if constexpr (CHAINS == 3) d.hl[e] = 0.f;
-  }
-}
-template <int CHAINS>
-__device__ __forceinline__ float total(const Acc<CHAINS>& d, int e) {
-  if constexpr (CHAINS == 3)
-    return __fadd_rn(d.big[e], __fadd_rn(d.lh[e], d.hl[e]));
-  else
-    return __fadd_rn(d.big[e], d.lh[e]);
-}
-
-__device__ __forceinline__ FragA split_a(float v0, float v1, float v2,
-                                         float v3) {
-  FragA f;
-  split(v0, f.hi[0], f.lo[0]);
-  split(v1, f.hi[1], f.lo[1]);
-  split(v2, f.hi[2], f.lo[2]);
-  split(v3, f.hi[3], f.lo[3]);
-  return f;
-}
-
-// A, element (m, k) at p[m * ld + k]: rows g and g + 8, one float2 each
-__device__ __forceinline__ FragA frag_a_rows(const float* p, int ld, int g,
-                                             int t) {
-  const float2 u = *reinterpret_cast<const float2*>(p + g * ld + 2 * t);
-  const float2 v = *reinterpret_cast<const float2*>(p + (g + 8) * ld + 2 * t);
-  return split_a(u.x, v.x, u.y, v.y);
-}
-
-// A, element (m, k) at p[k * ld + m], times w[k] (w at the 8-step's k)
-__device__ __forceinline__ FragA frag_a_cols(const float* p, int ld,
-                                             const float* w, int g, int t) {
-  const float w0 = w[2 * t], w1 = w[2 * t + 1];
-  const float* r0 = p + 2 * t * ld;
-  const float* r1 = r0 + ld;
-  return split_a(__fmul_rn(r0[g], w0), __fmul_rn(r0[g + 8], w0),
-                 __fmul_rn(r1[g], w1), __fmul_rn(r1[g + 8], w1));
-}
-
-// B, element (k, col) at p[col * ld + k]: one float2
-__device__ __forceinline__ FragB frag_b_rows(const float* p, int ld, int g,
-                                             int t) {
-  const float2 u = *reinterpret_cast<const float2*>(p + g * ld + 2 * t);
-  FragB f;
-  split(u.x, f.hi[0], f.lo[0]);
-  split(u.y, f.hi[1], f.lo[1]);
-  return f;
-}
-
-// B, element (k, col) at p[k * ld + col]
-__device__ __forceinline__ FragB frag_b_cols(const float* p, int ld, int g,
-                                             int t) {
-  FragB f;
-  split(p[2 * t * ld + g], f.hi[0], f.lo[0]);
-  split(p[(2 * t + 1) * ld + g], f.hi[1], f.lo[1]);
-  return f;
 }
 
 // the causal 16 x 8 tiles of a 64 x 64 sub-chunk's scores: 16 x 16 tile

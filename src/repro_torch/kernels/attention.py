@@ -84,6 +84,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("sage_flash_attention takes contiguous q, k, v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("sage_flash_attention takes q, k, v starting on a "
+                         "16-byte boundary (it copies rows 16 bytes at a "
+                         "time)")
     b, h, sq, hd = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     if hd not in (64, 128, 256):

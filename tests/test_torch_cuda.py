@@ -204,7 +204,12 @@ ATTN_CASES = [(4, 16, 1, 4000, 4000, 256, True, 2048, 0.0),
               (1, 8, 1, 129, 129, 256, False, 0, 0.0),
               (2, 4, 2, 200, 200, 128, False, 50, 30.0),
               (1, 4, 1, 45, 300, 64, False, 0, 0.0),
-              (1, 1, 1, 1, 1, 64, True, 0, 0.0)]
+              (1, 1, 1, 1, 1, 64, True, 0, 0.0),
+              # sq/sk not multiples of the 16-key or 128-row tile, the
+              # window's edge inside a key tile
+              (1, 16, 1, 1000, 1000, 256, True, 333, 30.0),
+              (2, 4, 2, 77, 1001, 256, False, 0, 30.0),
+              (1, 8, 2, 250, 250, 256, True, 17, 0.0)]
 
 
 @pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal,window,softcap", ATTN_CASES)
@@ -229,8 +234,22 @@ def test_flash_attention_kernel_matches_plain(dev, b, h, kv, sq, sk, hd,
     assert bool(((got - want).abs() <= 1e-4 * row).all())
 
 
+def test_flash_attention_kernel_refuses_rows_off_16_bytes(dev):
+    """The kernel copies rows 16 bytes at a time: a contiguous q that
+    starts 4 bytes into its storage is refused, and nothing launches."""
+    from repro_torch import _ext
+    from repro_torch.kernels import flash_attention_kernel
+    q = torch.zeros(1 + 2 * 64, device=dev)[1:].view(1, 1, 2, 64)
+    k = torch.zeros((1, 1, 2, 64), device=dev)
+    _ext.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_kernel(q, k, k.clone(), scale=0.125)
+    assert _ext.LAUNCHES["flash_attention"] == 0
+
+
 @pytest.mark.parametrize("b,s,w", [(4, 4000, 4096), (2, 1, 33), (3, 77, 100),
-                                   (1, 4096, 31)])
+                                   (1, 4096, 31), (2, 4001, 4100),
+                                   (1, 33, 4097)])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_rglru_kernel_matches_plain(dev, b, s, w, with_h0):
     from repro_torch import _ext

@@ -2,9 +2,11 @@
 without a card.
 
 The kernel runs its four products (C·Bᵀ, G·x, C·Sᵀ and (x·w)ᵀ·B) on the
-tensor cores in TF32 with split operands: a = hi + lo, hi =
-``cvt.rna.tf32.f32(a)``, lo = ``cvt.rna.tf32.f32(a - hi)``, and a·b ≈
-lo_a·hi_b + hi_a·lo_b + hi_a·hi_b with f32 sums.  ``_kernel_scan`` below
+tensor cores in TF32 with split operands: a = hi + lo, hi = a rounded to
+TF32 as ``cvt.rna.tf32.f32`` rounds it, lo = a - hi handed to the tensor
+cores as it is (they read the top 19 bits of a tf32 operand, so lo is
+truncated there), and a·b ≈ lo_a·hi_b + hi_a·lo_b + hi_a·hi_b with f32
+sums (``csrc/tf32_mma.cuh``, shared with B5).  ``_kernel_scan`` below
 copies the kernel's chunked form (the chunk's own end state over 256
 rows, the carry across chunks, then 64-row sub-chunks from each chunk's
 entering state, cumsums of dt·A in f64) and rounds the operands of its
@@ -35,15 +37,22 @@ def _tf32(a: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def _trunc(a: torch.Tensor) -> torch.Tensor:
+    """The 13 low mantissa bits dropped: an f32 operand as the tensor cores
+    read it in TF32."""
+    return (a.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
 def _mm(a, b, mode):
-    """a @ b as the tensor cores take it: ``split`` 3xTF32, ``tf32`` one
-    product of rounded operands, ``f32`` unrounded (f32 sums in all)."""
+    """a @ b as the tensor cores take it: ``split`` 3xTF32 (hi rounded, lo
+    truncated), ``tf32`` one product of rounded operands, ``f32``
+    unrounded (f32 sums in all)."""
     if mode == "f32":
         return a @ b
     ah, bh = _tf32(a), _tf32(b)
     if mode == "tf32":
         return ah @ bh
-    al, bl = _tf32(a - ah), _tf32(b - bh)
+    al, bl = _trunc(a - ah), _trunc(b - bh)
     return al @ bh + ah @ bl + ah @ bh
 
 
@@ -180,7 +189,8 @@ def test_ssd_chunked_holds_ssd_rtol_of_the_oracle(cases):
 
 def test_tf32_rounding_is_cvt_rna():
     """10 mantissa bits kept, the half-way case rounded away from zero,
-    signs kept, and hi + lo within 2^-20 of a normal f32 a."""
+    signs kept, and hi + lo (lo truncated) within 2^-20 of a normal f32
+    a."""
     one = 1.0
     ulp = 2.0 ** -10                              # TF32's unit at 1.0
     a = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 **
@@ -190,6 +200,7 @@ def test_tf32_rounding_is_cvt_rna():
     v = torch.from_numpy(np.random.default_rng(0).standard_normal(
         1000).astype(np.float32))
     hi = _tf32(v)
-    lo = _tf32(v - hi)
+    lo = _trunc(v - hi)
     assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((lo.view(torch.int32) & 0x1FFF) == 0).all())
     assert float(((hi + lo) - v).abs().max() / v.abs().max()) < 2 ** -20
