@@ -9,13 +9,16 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
 1. Card and build: the card's name and power limit (nvidia-smi), the
    torch and CUDA versions, the one nvcc build of every
    ``src/repro_torch/csrc/*.cu`` with its ptxas lines (B5 and B7 must
-   not spill), and the count of tensor-core instructions in the SASS of
-   the flash-attention and SSD kernels (cuobjdump).
+   not spill; B1 and B2 must keep no stack frame), and the count of
+   tensor-core instructions in the SASS of the flash-attention and SSD
+   kernels (cuobjdump).
 2. Each CUDA kernel against its plain PyTorch version on the card over
    edge shapes, ops, dtypes and expression specs; int results must be
-   equal, f32 min/max equal, f32 sums within ``F32_SUM_RTOL`` of the
-   segment's sum of |v| (atomics add in another order), the heat scan
-   equal bit for bit (``[heat]``).  Each kernel is also timed on the
+   equal, f32 min/max equal (NaN where plain has NaN), f32 sums within
+   ``F32_SUM_RTOL`` of the segment's sum of |v| (they add in another
+   order), the heat scan equal bit for bit (``[heat]``); B1 and B2 also
+   at their design's thresholds (``AGG_CASES``), and their f32 sums must
+   repeat bit for bit at 1 and 32 segments (a table a thread).  Each kernel is also timed on the
    device (CUDA events, the card kept busy while the host enqueues) at
    the shape its path gives it, beside its bound, its plain version and,
    where one exists, one PyTorch library call; one ``heat_scores`` call
@@ -75,6 +78,16 @@ F32_SUM_RTOL = 1e-4            # f32 sums vs plain, relative to sum |v|
 PARTS, ROWS, KEYS, WINDOW = 16, 4_194_304, 4096, 4096
 CHECK_ROWS = (1, 1023, 1025, ROWS)
 CHECK_SEGS = (1, 128, 4096, 60000)   # 60000: the global-atomic path
+BINS = 32                      # query (c)'s histogram
+# (rows, segs, every row in one segment): B1 and B2 keep a table a thread
+# up to 32 segments, one a block up to 8,192, atomics above; their grid
+# is a block per 16,384 rows up to one a multiprocessor (132 blocks from
+# 2,146,305 rows); query (c)'s shape; all rows in one segment
+AGG_CASES = ((70_000, 32, False), (70_000, 33, False),
+             (100_003, 8192, False), (100_003, 8193, False),
+             (16_384, 4096, False), (16_385, 4096, False),
+             (2_162_689, 4096, False), (ROWS, BINS, False),
+             (1 << 20, 1, True), (1 << 20, 4096, True))
 OPS = ("sum", "count", "min", "max")
 HEAT_SHAPES = ((1, 1), (24, 37), (7, 129), (64, 1000))   # (hist, nobj)
 HEAT_HIST, HEAT_OBJS = 64, 262_144   # extractor hist_len x tracked objects
@@ -156,6 +169,7 @@ KERNELS = {   # name -> (source, TPU kernel it replaces: reference file:line)
     "ssd_scan": (SSM_CU, "src/repro/kernels/ssd_scan.py:32"),
 }
 MODEL_KERNELS = ("flash_attention", "rglru_scan", "ssd_scan")
+AGG_PTXAS = ("fused_kernel", "segment_kernel", "combine_kernel")  # B1, B2
 BATCH_KERNELS = ("fused_filter_aggregate", "segment_reduce",
                  "window_reduce")
 
@@ -186,19 +200,44 @@ def phase_card_and_build(torch, ext):
     ext.library()
     log(f"[build] {time.perf_counter() - t0:.2f} s (nvcc "
         f"{ext.build_seconds:.2f} s)")
-    entry, spills = None, []
+    entry, spills, frames = None, [], []
+    agg = {k: {"instantiations": 0, "registers": set(), "stack_frame": 0,
+               "spill_bytes": 0} for k in AGG_PTXAS}
     for line in ext.build_log.splitlines():
         if any(w in line for w in ("registers", "Compiling entry", "spill")):
             log(f"[build] {line.strip()}")
         if "Compiling entry" in line:
             entry = line.split("'")[1] if "'" in line else line
-        elif "spill" in line and entry and any(
-                k in entry for k in ("flash_attention_kernel",
-                                     "rglru_scan_kernel")):
-            if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+            for k in AGG_PTXAS:
+                agg[k]["instantiations"] += k in entry
+            continue
+        if not entry:
+            continue
+        name = next((k for k in AGG_PTXAS if k in entry), None)
+        if "spill" in line:
+            nums = [int(n) for n in re.findall(r"(\d+) bytes", line)]
+            if any(k in entry for k in ("flash_attention_kernel",
+                                        "rglru_scan_kernel")) \
+                    and any(nums[1:]):
                 spills.append(entry)
+            if name:                   # "F bytes stack frame, S stores, L loads"
+                agg[name]["stack_frame"] = max(agg[name]["stack_frame"],
+                                               nums[0])
+                agg[name]["spill_bytes"] += sum(nums[1:])
+                if any(nums):
+                    frames.append(entry)
+        elif name and "registers" in line:
+            agg[name]["registers"].update(
+                int(n) for n in re.findall(r"Used (\d+) registers", line))
     if spills:
         fail(f"B5/B7 kernels spill registers: {spills}")
+    for k, v in agg.items():
+        v["registers"] = [min(v["registers"], default=0),
+                          max(v["registers"], default=0)]
+    log(f"[build] B1/B2 ptxas (min/max registers over the instantiations): "
+        f"{json.dumps(agg)}")
+    if frames:
+        fail(f"B1/B2 kernels keep a stack frame or spill: {frames}")
     log_tensor_core_sass(ext)
     return smi
 
@@ -356,6 +395,9 @@ def phase_kernels(torch, K, col, dev):
                     chk.same("segment_reduce", f"rows={n} segs={n_seg} "
                              f"op={op} {dt}", got, want, op, abs_sum)
 
+    agg_edges(torch, K, chk, gen, dev, data, program, preds, int_values,
+              f32_values)
+
     # B3 takes a block per window of 1,024 elements or more, a warp
     # below: both sides of that threshold, windows and slides that are not
     # multiples of 4, and more than 65,535 windows
@@ -401,6 +443,95 @@ def phase_kernels(torch, K, col, dev):
         f"{windows} (n, window, slide), {nan_cases} of its cases f32 "
         f"min/max over values with NaNs, equal with equal_nan)")
     return chk
+
+
+def agg_edges(torch, K, chk, gen, dev, data, program, preds, int_values,
+              f32_values):
+    """B1 and B2 at their design's thresholds (AGG_CASES), with every row
+    in one segment, f32 min/max over NaNs, and f32 sums run three times
+    at 1 and 32 segments (a table a thread): the same bits (ROADMAP
+    C4)."""
+    def both(ids, cols, n_seg, what, ops=OPS, dts=(torch.int32,
+                                                   torch.float32)):
+        for op in ops:
+            for dt in dts:
+                pred = preds[0] if dt == torch.int32 else preds[1]
+                value = (int_values[0] if dt == torch.int32
+                         else f32_values[0])
+                prog, used = program(pred, value, str(dt).split(".")[1])
+                ts = [cols[i] for i in used]
+                got = K.fused_filter_aggregate_tensor(ts, prog, ids, n_seg,
+                                                      op, dt)
+                want = K.fused_filter_aggregate_plain(ts, prog, ids, n_seg,
+                                                      op, dt)
+                abs_sum = None
+                if op == "sum" and dt == torch.float32:
+                    val = K._run_program_plain(prog.code[prog.n_pred:],
+                                               prog, ts).abs()
+                    keep = K._run_program_plain(prog.code[:prog.n_pred],
+                                                prog, ts) != 0
+                    abs_sum = K.segment_reduce_plain(
+                        val.contiguous(), torch.where(keep, ids, -1), n_seg,
+                        "sum")
+                same_nan(chk, "fused_filter_aggregate", f"{what} op={op} "
+                         f"{dt} acc", got[0], want[0], op, abs_sum)
+                chk.same("fused_filter_aggregate", f"{what} op={op} {dt} "
+                         f"cnt", got[1], want[1], "count")
+                v = cols[2] if dt == torch.int32 else cols[3]
+                got = K.segment_reduce_tensor(v, ids, n_seg, op)
+                want = K.segment_reduce_plain(v, ids, n_seg, op)
+                abs_sum = (K.segment_reduce_plain(v.abs().nan_to_num(0.0),
+                                                  ids, n_seg, "sum")
+                           if dt == torch.float32 else None)
+                same_nan(chk, "segment_reduce", f"{what} op={op} {dt}", got,
+                         want, op, abs_sum)
+
+    for n, n_seg, one in AGG_CASES:
+        ids, cols = data(n, n_seg)
+        if one:                        # every row in one segment
+            ids = torch.full_like(ids, 7 % n_seg)
+        both(ids, cols, n_seg, f"rows={n} segs={n_seg}"
+             + (" one segment" if one else ""))
+    for n_seg in (32, 33, KEYS, 8193):
+        ids, cols = data(70_000, n_seg)
+        cols[3][torch.rand((70_000,), generator=gen, device=dev)
+                < 2.0 / n_seg] = float("nan")
+        both(ids, cols, n_seg, f"rows=70000 segs={n_seg} with NaNs",
+             ops=("min", "max"), dts=(torch.float32,))
+    for n_seg in (1, BINS):            # f32 sums in thread tables
+        ids, cols = data(ROWS, n_seg)
+        prog, used = program(preds[1], f32_values[0], "float32")
+        ts = [cols[i] for i in used]
+        b1 = [K.fused_filter_aggregate_tensor(ts, prog, ids, n_seg, "sum",
+                                              torch.float32)[0]
+              for _ in range(3)]
+        b2 = [K.segment_reduce_tensor(cols[3], ids, n_seg, "sum")
+              for _ in range(3)]
+        for name, runs in (("fused_filter_aggregate", b1),
+                           ("segment_reduce", b2)):
+            if not all(torch.equal(runs[0], r) for r in runs[1:]):
+                fail(f"{name} f32 sum at rows={ROWS} segs={n_seg} changed "
+                     f"its bits between runs")
+    log(f"[kernels] B1/B2 at their thresholds (rows, segs, one segment): "
+        f"{AGG_CASES}; f32 min/max with NaNs equal with equal_nan at segs "
+        f"32, 33, {KEYS}, 8193; f32 sums the same bits over 3 runs at "
+        f"rows={ROWS} segs 1 and {BINS}")
+
+
+def same_nan(chk, name, what, got, want, op, abs_sum):
+    """chk.same, with NaN where plain has NaN (f32 min/max, and f32 sums
+    of a segment holding a NaN)."""
+    torch = chk.torch
+    nan = torch.isnan(want) if want.dtype == torch.float32 else None
+    if nan is None or not bool(nan.any()):
+        chk.same(name, what, got, want, op, abs_sum)
+        return
+    if not torch.equal(torch.isnan(got), nan):
+        fail(f"{name} {what}: NaN where plain has none, or none where it "
+             f"has NaN")
+    keep = ~nan
+    chk.same(name, what, got[keep], want[keep], op,
+             None if abs_sum is None else abs_sum[keep])
 
 
 def heat_inputs(torch, gen, dev, hist, nobj, weights):
@@ -679,38 +810,74 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     key, quality, reading = ri(0, KEYS), ri(0, 100), ri(-500, 500)
     out = {}
 
-    # B1: filter col(1) >= 75, key col(0), f32 sum of col(2) (query a)
-    prog = K.compile_specs(json.dumps((col(1) >= 75).to_spec()),
-                           json.dumps(col(2).to_spec()),
-                           ((1, "I"), (2, "I")), "float32")
-    ts = [quality, reading]
-    survivors = int((quality >= 75).sum())
+    # B1 at each of its main-path shapes (the queries' fused passes):
+    # filter col(1) >= 75, key col(0); (a) f32 sum of col(2) for the mean
+    # (the kernels line's row), (b) count, int32 min and max of col(2)
+    pred = json.dumps((col(1) >= 75).to_spec())
+    value = json.dumps(col(2).to_spec())
+    kinds = ((1, "I"), (2, "I"))
+    keep = quality >= 75
+    survivors = int(keep.sum())
+    # 32-byte sectors of the value column holding a survivor: what a
+    # read of the survivors' values moves at the least
+    sectors = int(keep.view(-1, 8).any(dim=1).sum())
+    b1_shapes = {}
+    for q, (spec, op, dt, ts) in {
+            "a_mean": (value, "sum", torch.float32, [quality, reading]),
+            "b_count": ("", "sum", torch.int32, [quality]),
+            "b_min": (value, "min", torch.int32, [quality, reading]),
+            "b_max": (value, "max", torch.int32, [quality, reading])}.items():
+        prog = K.compile_specs(pred, spec, kinds[:len(ts)],
+                               str(dt).split(".")[1])
+        b1 = (lambda prog=prog, ts=ts, op=op, dt=dt:
+              K.fused_filter_aggregate_tensor(ts, prog, key, KEYS, op, dt))
+        # ids and the predicate column for every row, the value column for
+        # the survivors (by rows, or by the 32-byte sectors that hold one),
+        # acc + cnt out
+        rows_bytes = 4 * ROWS * 2 + 8 * KEYS
+        b1_shapes[q] = dict(
+            ms=device_ms(torch, b1), host_ms=device_ms(torch, b1, host=True),
+            bound_bytes=rows_bytes + (4 * survivors if spec else 0),
+            sector_bytes=rows_bytes + (32 * sectors if spec else 0),
+            plain_ms=device_ms(torch, lambda prog=prog, ts=ts, op=op, dt=dt:
+                               K.fused_filter_aggregate_plain(
+                                   ts, prog, key, KEYS, op, dt)))
+    a = b1_shapes["a_mean"]
     out["fused_filter_aggregate"] = dict(
-        ms=device_ms(torch, lambda: K.fused_filter_aggregate_tensor(
-            ts, prog, key, KEYS, "sum", torch.float32)),
-        plain_ms=device_ms(torch, lambda: K.fused_filter_aggregate_plain(
-            ts, prog, key, KEYS, "sum", torch.float32)),
-        # ids + the predicate column for every row, the value column for
-        # the survivors, acc + cnt out
-        bound_bytes=4 * ROWS * 2 + 4 * survivors + 8 * KEYS,
-        library_ms=None, shape=f"rows={ROWS} segs={KEYS} sum f32")
+        ms=a["ms"], plain_ms=a["plain_ms"], bound_bytes=a["bound_bytes"],
+        host_ms=a["host_ms"], library_ms=None, library_host_ms=None,
+        shapes=b1_shapes, shape=f"rows={ROWS} segs={KEYS} sum f32 "
+        f"(query a)")
+    for q, r in b1_shapes.items():
+        log(f"[timing] fused_filter_aggregate {q}: {r['ms']:.4f} ms/launch "
+            f"(device), {r['host_ms']:.4f} ms per call with the host's work, "
+            f"plain {r['plain_ms']:.4f} ms; bound {r['bound_bytes']} B = "
+            f"{r['bound_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms, by 32-byte "
+            f"sectors {r['sector_bytes']} B = "
+            f"{r['sector_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms "
+            f"({sectors} of {ROWS // 8} value sectors hold one of "
+            f"{survivors} survivors)")
 
     # B2: histogram count of 32 bins over col(2) (query c)
-    bins = ((reading.double() + 500) / (1000 / 32)).floor().clamp_(max=31)
+    bins = ((reading.double() + 500) / (1000 / BINS)).floor().clamp_(
+        max=BINS - 1)
     ids = bins.to(torch.int32)
     ones = torch.ones_like(ids)
-    dump = torch.where(ids >= 0, ids, 32).long()
-    lib_out = torch.zeros(33, dtype=torch.int32, device=dev)
+    dump = torch.where(ids >= 0, ids, BINS).long()
+    lib_out = torch.zeros(BINS + 1, dtype=torch.int32, device=dev)
+    b2 = lambda: K.segment_reduce_tensor(ones, ids, BINS, "count")  # noqa: E731
+    b2_lib = lambda: lib_out.scatter_reduce_(  # noqa: E731
+        0, dump, ones, reduce="sum")
     out["segment_reduce"] = dict(
-        ms=device_ms(torch, lambda: K.segment_reduce_tensor(
-            ones, ids, 32, "count")),
+        ms=device_ms(torch, b2),
         plain_ms=device_ms(torch, lambda: K.segment_reduce_plain(
-            ones, ids, 32, "count")),
+            ones, ids, BINS, "count")),
         # count reads only the ids (the values are never loaded)
-        bound_bytes=4 * ROWS + 4 * 32,
-        library_ms=device_ms(torch, lambda: lib_out.scatter_reduce_(
-            0, dump, ones, reduce="sum")),
-        shape=f"rows={ROWS} segs=32 count int32")
+        bound_bytes=4 * ROWS + 4 * BINS,
+        library_ms=device_ms(torch, b2_lib),
+        host_ms=device_ms(torch, b2, host=True),
+        library_host_ms=device_ms(torch, b2_lib, host=True),
+        shape=f"rows={ROWS} segs={BINS} count int32")
 
     # B3: tumbling window max over col(2) (query d)
     nw = ROWS // WINDOW
@@ -817,8 +984,10 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
             extra = (f"; achieved {r['bound_bytes'] / r['ms'] / 1e6:.1f} "
                      f"GB/s")
         if "host_ms" in r:
+            lib = r["library_host_ms"]
             extra += (f"; per call with the host's work: {r['host_ms']:.4f} "
-                      f"ms, library {r['library_host_ms']:.4f} ms")
+                      f"ms, library "
+                      f"{'none' if lib is None else f'{lib:.4f} ms'}")
         log(f"[timing] {name} ({r['shape']}): {r['ms']:.4f} ms/launch, "
             f"plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
@@ -1573,6 +1742,12 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     log(f"[main] launches per query: {json.dumps(per_query)}")
+    b1 = timing["fused_filter_aggregate"]["shapes"]
+    log("[timing] fused_filter_aggregate by main-path shape (device ms a "
+        "launch, ms a call with the host's work, launches on the main "
+        "path): " + json.dumps({q: [round(r["ms"], 4), round(r["host_ms"], 4),
+                                    per_query[q]["fused_filter_aggregate"]]
+                                for q, r in b1.items()}))
     log(f"[stream] launches: {json.dumps(stream)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)                          # nvidia-smi's "name, power.limit"

@@ -46,9 +46,10 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                    ctypes.c_float)
 # C signatures of the launchers in SOURCES
 _SIGNATURES = {
+    "sage_aggregate_blocks": (_I64, _I),
     "sage_fused_aggregate": (_P, _I, _P, _P, _I, _I, _P, _I, _P, _I64,
-                             _P, _P, _I, _I, _I, _P),
-    "sage_segment_reduce": (_P, _P, _I64, _P, _I, _I, _I, _P),
+                             _P, _P, _I, _I, _I, _P, _I64, _P),
+    "sage_segment_reduce": (_P, _P, _I64, _P, _I, _I, _I, _P, _I64, _P),
     "sage_window_reduce": (_P, _I64, _I64, _I64, _P, _I, _I, _P),
     "sage_heat_scan": (_P, _P, _I64, _I64, _P, _P),
     "sage_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,

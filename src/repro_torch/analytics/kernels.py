@@ -156,24 +156,35 @@ def fused_out_dtype(value_spec: Optional[Dict],
 
 
 # ---------------------------------------------------------------------------
-# typed postfix programs for the fused kernel
+# typed programs for the fused kernel
 # ---------------------------------------------------------------------------
 #
 # Every node is typed int32 (I), float32 (F) or bool (B, held as int32
 # 0/1), the 32-bit types the reference's JAX kernel computes in: ints
 # and bools promote to F next to a float, `/` is true division in F, a
-# comparison yields B, `~` is logical on B and bitwise on I.  The opcode
-# numbers match enum Code in csrc/analytics_kernels.cu.
+# comparison yields B, `~` is logical on B and bitwise on I.
+#
+# A spec compiles to postfix, and the postfix to code for an accumulator
+# machine, which the kernel runs for several rows per instruction with the
+# accumulator A in registers: each instruction is (opcode | source << 8 |
+# _REV, arg).  "load" sets A to its operand, "push" spills A to stack
+# level arg, a unary op maps A, a binary op sets A = A op operand (with
+# _REV, operand op A).  The operand is a column slot, a literal or a
+# spilled level, as the source says.  The opcode numbers match enum Code
+# in csrc/analytics_kernels.cu.
 
 _I, _F, _B = "I", "F", "B"
 _OPCODES = {
-    "col": 0, "lit": 1, "i2f": 2, "f2i": 3, "f2b": 4,
+    "load": 0, "push": 1, "i2f": 2, "f2i": 3, "f2b": 4,
     "+I": 10, "-I": 11, "*I": 12, "%I": 13, "&": 14, "|": 15,
     "~I": 16, "~B": 17,
     "+F": 20, "-F": 21, "*F": 22, "/F": 23, "%F": 24,
     ">I": 30, ">=I": 31, "<I": 32, "<=I": 33, "==I": 34, "!=I": 35,
     ">F": 40, ">=F": 41, "<F": 42, "<=F": 43, "==F": 44, "!=F": 45,
 }
+_UNARY = ("i2f", "f2i", "f2b", "~I", "~B")
+_SOURCES = {"col": 1, "lit": 2, "stk": 3}     # enum Src; 0: no operand
+_REV = 1 << 10
 MAX_COLS, MAX_CODE, MAX_LITS, MAX_STACK = 16, 128, 64, 16
 
 
@@ -196,10 +207,11 @@ def _kernel_column(c: np.ndarray) -> np.ndarray:
 
 
 class Program(NamedTuple):
-    """A compiled fused-kernel program: ``code`` is a tuple of (opcode,
-    arg) instructions, the first ``n_pred`` of them the predicate
-    (leaving an I/B value, nonzero keeps the row) and the rest the value
-    (leaving the accumulator dtype); ``lits`` holds each literal's int32
+    """A compiled fused-kernel program: ``code`` is a tuple of
+    accumulator-machine instructions (packed opcode, arg), the first
+    ``n_pred`` of them the predicate (leaving an I/B value, nonzero keeps
+    the row) and the rest the value (leaving the accumulator dtype); each
+    part starts from an empty stack.  ``lits`` holds each literal's int32
     or float32 bit pattern and ``lit_f`` which of them are floats."""
     code: Tuple[Tuple[int, int], ...]
     n_pred: int
@@ -248,26 +260,72 @@ def _kind(spec: Dict, kinds: Dict[int, str]) -> str:
     return _F if floaty else _I
 
 
+_ACC = ("acc", 0)
+
+
+def _accumulator_code(postfix: List[Tuple[str, int]]
+                      ) -> List[Tuple[int, int]]:
+    """Re-encode one postfix program for the accumulator machine.  A
+    symbolic stack holds each pending value: a column or literal (not yet
+    loaded), the accumulator (at most one entry) or a spilled level.  A
+    binary op takes a column, literal or level as its operand directly;
+    the accumulator is spilled only when a new value must be built while
+    it is still pending, so spilled levels always lie below it and are
+    taken back last in, first out."""
+    code: List[Tuple[int, int]] = []
+    stack: List[Tuple[str, int]] = []
+
+    def word(op, e, rev=False):
+        return _OPCODES[op] | _SOURCES[e[0]] << 8 | (_REV if rev else 0)
+
+    def into_acc(e):
+        if e == _ACC:
+            return
+        if _ACC in stack:                  # A still pending: spill it
+            level = sum(1 for x in stack if x[0] == "stk")
+            code.append((_OPCODES["push"], level))
+            stack[stack.index(_ACC)] = ("stk", level)
+        code.append((word("load", e), e[1]))
+
+    for op, arg in postfix:
+        if op in ("col", "lit"):
+            stack.append((op, arg))
+            continue
+        if op in _UNARY:
+            into_acc(stack.pop())
+            code.append((_OPCODES[op], 0))
+        else:
+            r, l = stack.pop(), stack.pop()
+            if r == _ACC:
+                code.append((word(op, l, rev=True), l[1]))
+            else:
+                into_acc(l)
+                code.append((word(op, r), r[1]))
+        stack.append(_ACC)
+    into_acc(stack.pop())
+    return code
+
+
 @functools.lru_cache(maxsize=512)
 def compile_specs(pred_json: str, value_json: str,
                   coltypes: Tuple[Tuple[int, str], ...], out_dtype: str
                   ) -> Program:
     """Compile a predicate and a value spec (JSON, "" for none) into one
-    postfix program.  ``coltypes`` pairs each column index with its kind
+    program.  ``coltypes`` pairs each column index with its kind
     (I/F/B), in slot order; ``out_dtype`` is the accumulator's numpy
     dtype name."""
     slot = {i: j for j, (i, _) in enumerate(coltypes)}
     kinds = dict(coltypes)
-    code: List[Tuple[int, int]] = []
+    postfix: List[Tuple[str, int]] = []
     lits: List[int] = []
     lit_f: List[bool] = []
     depth = [0, 0]                         # current, max
 
     def push(op, arg=0):
-        code.append((_OPCODES[op], arg))
+        postfix.append((op, arg))
         if op in ("col", "lit"):
             depth[0] += 1
-        elif op not in ("i2f", "f2i", "f2b", "~I", "~B"):
+        elif op not in _UNARY:
             depth[0] -= 1
         depth[1] = max(depth)
 
@@ -295,15 +353,17 @@ def compile_specs(pred_json: str, value_json: str,
                 push("i2f")
             push(op if op in ("&", "|") else op + (_F if floaty else _I))
 
-    n_pred = 0
+    code: List[Tuple[int, int]] = []
     if pred_json:
         pred = json.loads(pred_json)
         emit(pred)
         if _kind(pred, kinds) == _F:
             push("f2b")
-        n_pred = len(code)
+        code = _accumulator_code(postfix)
+    n_pred = len(code)
     if value_json:
         value = json.loads(value_json)
+        postfix.clear()
         depth[0] = 0
         emit(value)
         kind = _kind(value, kinds)
@@ -311,6 +371,7 @@ def compile_specs(pred_json: str, value_json: str,
             push("i2f")
         elif out_dtype == "int32" and kind == _F:
             push("f2i")
+        code += _accumulator_code(postfix)
     if len(code) > MAX_CODE or len(lits) > MAX_LITS \
             or depth[1] > MAX_STACK:
         raise ValueError(f"expression too large for the fused kernel "
@@ -324,34 +385,42 @@ _OPNAMES = {v: k for k, v in _OPCODES.items()}
 
 def _run_program_plain(code, prog: Program,
                        cols: List[torch.Tensor]) -> torch.Tensor:
-    """The plain PyTorch version of the kernel's program interpreter:
-    I/B values are int32 tensors, F values float32 tensors."""
+    """The plain PyTorch version of the kernel's interpreter, on whole
+    columns: I/B values are int32 tensors, F values float32 tensors."""
     dev = cols[0].device if cols else torch.device("cpu")
-    st: List[torch.Tensor] = []
-    for opc, arg in code:
-        op = _OPNAMES[opc]
-        if op == "col":
-            st.append(cols[arg])
-        elif op == "lit":
-            t = torch.tensor(prog.lits[arg], dtype=torch.int32, device=dev)
-            st.append(t.view(torch.float32) if prog.lit_f[arg] else t)
-        elif op in ("i2f", "f2i", "f2b", "~I", "~B"):
-            x = st.pop()
+    acc: Optional[torch.Tensor] = None
+    levels: Dict[int, torch.Tensor] = {}
+    for w, arg in code:
+        op, src = _OPNAMES[w & 0xff], (w >> 8) & 3
+        if op == "push":
+            levels[arg] = acc
+            continue
+        if src == 0:
             if op == "i2f":
-                x = x.to(torch.float32)
+                acc = acc.to(torch.float32)
             elif op == "f2i":
-                x = x.to(torch.int32)
+                acc = acc.to(torch.int32)
             elif op == "f2b":
-                x = (x != 0).to(torch.int32)
+                acc = (acc != 0).to(torch.int32)
             elif op == "~I":
-                x = torch.bitwise_not(x)
+                acc = torch.bitwise_not(acc)
             else:
-                x = 1 - x
-            st.append(x)
+                acc = 1 - acc
+            continue
+        if src == _SOURCES["col"]:
+            b = cols[arg]
+        elif src == _SOURCES["lit"]:
+            b = torch.tensor(prog.lits[arg], dtype=torch.int32, device=dev)
+            b = b.view(torch.float32) if prog.lit_f[arg] else b
         else:
-            b, a = st.pop(), st.pop()
-            st.append(_binop_plain(op, a, b))
-    return st[0]
+            b = levels[arg]
+        if op == "load":
+            acc = b
+        elif w & _REV:
+            acc = _binop_plain(op, b, acc)
+        else:
+            acc = _binop_plain(op, acc, b)
+    return acc
 
 
 def _binop_plain(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -394,11 +463,20 @@ def segment_reduce_plain(values: torch.Tensor, ids: torch.Tensor,
     return out.scatter_reduce_(0, idx, v, reduce=red, include_self=True)
 
 
+@functools.lru_cache(maxsize=4096)
+def _scratch_rows(lib, n: int, n_segments: int, device_index: int) -> int:
+    """Rows of the [rows, n_segments] partials B1 and B2 stage for a call
+    on this device (a block of their grid each; 0 on their global-atomic
+    path)."""
+    return lib.sage_aggregate_blocks(n, n_segments)
+
+
 def segment_reduce_tensor(values: torch.Tensor, ids: torch.Tensor,
                           n_segments: int, op: str) -> torch.Tensor:
     """values int32/float32 (n,), ids int32 (n,), negative = dropped.
-    CUDA tensors launch ``sage_segment_reduce``; CPU tensors run the
-    plain version."""
+    CUDA tensors launch ``sage_segment_reduce`` (per-block partials in a
+    scratch of this call, folded in block order by a second launch); CPU
+    tensors run the plain version."""
     if not values.is_cuda:
         return segment_reduce_plain(values, ids, n_segments, op)
     _check_cuda("segment_reduce", values, ids)
@@ -406,14 +484,17 @@ def segment_reduce_tensor(values: torch.Tensor, ids: torch.Tensor,
             or values.shape != ids.shape or values.dim() != 1:
         raise ValueError("segment_reduce takes (n,) int32/float32 values "
                          "and (n,) int32 ids")
-    out = torch.full((n_segments,), _identity(op, _np_dtype(values.dtype)),
-                     dtype=values.dtype, device=values.device)
     ext, lib = _lib()
-    with torch.cuda.device(values.device):
+    n, dev = values.numel(), values.device
+    with torch.cuda.device(dev):
+        rows = _scratch_rows(lib, n, n_segments, dev.index)
+        out = torch.empty((n_segments,), dtype=values.dtype, device=dev)
+        scratch = torch.empty((rows * n_segments,), dtype=values.dtype,
+                              device=dev)
         err = lib.sage_segment_reduce(
-            values.data_ptr(), ids.data_ptr(), values.numel(),
-            out.data_ptr(), n_segments, _DT_CODE[values.dtype],
-            _OP_CODE[op], _stream(values))
+            values.data_ptr(), ids.data_ptr(), n, out.data_ptr(), n_segments,
+            _DT_CODE[values.dtype], _OP_CODE[op], scratch.data_ptr(), rows,
+            _stream(values))
     ext.check(lib, err, "segment_reduce")
     count_launch("segment_reduce")
     return out
@@ -637,39 +718,53 @@ def fused_filter_aggregate_plain(cols: List[torch.Tensor], program: Program,
     return acc, cnt
 
 
+@functools.lru_cache(maxsize=512)
+def _program_args(program: Program):
+    """The program's instruction, argument and literal arrays as the
+    launcher takes them, built once per compiled program."""
+    code, lits = program.code, program.lits
+    n = max(len(code), 1)
+    return ((ctypes.c_int * n)(*[c for c, _ in code]),
+            (ctypes.c_int * n)(*[a for _, a in code]),
+            (ctypes.c_int32 * max(len(lits), 1))(*lits))
+
+
 def fused_filter_aggregate_tensor(cols: List[torch.Tensor], program: Program,
                                   ids: torch.Tensor, n_segments: int,
                                   op: str, out_dtype: torch.dtype
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cols: int32/float32 (n,) tensors in program slot order; ids int32
-    (n,).  CUDA tensors launch ``sage_fused_aggregate``; CPU tensors run
-    the plain version."""
+    (n,).  CUDA tensors launch ``sage_fused_aggregate`` (per-block
+    partials in a scratch of this call, folded in block order by a second
+    launch); CPU tensors run the plain version."""
     if not ids.is_cuda:
         return fused_filter_aggregate_plain(cols, program, ids, n_segments,
                                             op, out_dtype)
     _check_cuda("fused_filter_aggregate", ids, *cols)
-    code, n_pred, lits = program.code, program.n_pred, program.lits
+    code, n_pred = program.code, program.n_pred
     if ids.dtype != torch.int32 or ids.dim() != 1 or any(
             c.shape != ids.shape or c.dtype not in _DT_CODE for c in cols):
         raise ValueError("fused_filter_aggregate takes (n,) int32 ids and "
                          "(n,) int32/float32 columns")
     if len(cols) > MAX_COLS:
         raise ValueError(f"more than {MAX_COLS} columns")
-    acc = torch.full((n_segments,), _identity(op, _np_dtype(out_dtype)),
-                     dtype=out_dtype, device=ids.device)
-    cnt = torch.zeros((n_segments,), dtype=torch.int32, device=ids.device)
+    ops, args, litv = _program_args(program)
     ptrs = (ctypes.c_void_p * max(len(cols), 1))(
         *[c.data_ptr() for c in cols])
-    ops = (ctypes.c_int * max(len(code), 1))(*[c for c, _ in code])
-    args = (ctypes.c_int * max(len(code), 1))(*[a for _, a in code])
-    litv = (ctypes.c_int32 * max(len(lits), 1))(*lits)
     ext, lib = _lib()
-    with torch.cuda.device(ids.device):
+    n, dev = ids.numel(), ids.device
+    with torch.cuda.device(dev):
+        rows = _scratch_rows(lib, n, n_segments, dev.index)
+        acc = torch.empty((n_segments,), dtype=out_dtype, device=dev)
+        cnt = torch.empty((n_segments,), dtype=torch.int32, device=dev)
+        # partials [2, rows, n_segments]: the blocks' acc bits, then counts
+        scratch = torch.empty((2 * rows * n_segments,), dtype=torch.int32,
+                              device=dev)
         err = lib.sage_fused_aggregate(
             ptrs, len(cols), ops, args, n_pred, len(code) - n_pred, litv,
-            len(lits), ids.data_ptr(), ids.numel(), acc.data_ptr(),
+            len(program.lits), ids.data_ptr(), n, acc.data_ptr(),
             cnt.data_ptr(), n_segments, _DT_CODE[out_dtype], _OP_CODE[op],
-            _stream(ids))
+            scratch.data_ptr(), rows, _stream(ids))
     ext.check(lib, err, "fused_filter_aggregate")
     count_launch("fused_filter_aggregate")
     return acc, cnt
@@ -784,3 +879,4 @@ def kernel_cache_info() -> Dict[str, int]:
 
 def kernel_cache_clear():
     compile_specs.cache_clear()
+    _program_args.cache_clear()

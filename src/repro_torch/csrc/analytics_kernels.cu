@@ -12,22 +12,20 @@
 // the columns the specs read, 4 B each) and does a handful of integer or
 // float operations, far below the H100's ~20 operations per byte of
 // HBM bandwidth.  The TPU kernels folded every row into a 128-segment
-// block with a 128x128 lane-iota membership mask; here each thread owns
-// one row at a time and folds it with an atomic into a block-private
-// shared-memory accumulator (flushed to global memory with atomics once
-// per block), or, above kSmemSegments segments, straight into global
-// memory.  Either way a row costs O(1) work instead of O(segments).
+// block with a 128x128 lane-iota membership mask; here a row costs O(1)
+// work instead of O(segments) (B1 and B2 below, B3 further down).
 //
-// The filter and value expressions arrive as a typed postfix program
-// (compiled on the host by repro_torch.analytics.kernels) in a
-// __grid_constant__ parameter block, so one build serves every query;
-// every thread walks the same program, so the opcode switch does not
-// diverge within a warp.  Integer arithmetic wraps (two's complement)
-// and `%` takes the sign of the divisor, as numpy and JAX define them.
+// The filter and value expressions arrive as a typed program (compiled on
+// the host by repro_torch.analytics.kernels) in a __grid_constant__
+// parameter block, so one build serves every query; every thread walks
+// the same program, so the opcode switch does not diverge within a warp.
+// Integer arithmetic wraps (two's complement) and `%` takes the sign of
+// the divisor, as numpy and JAX define them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -36,18 +34,20 @@ constexpr int kMaxCols = 16;
 constexpr int kMaxCode = 128;
 constexpr int kMaxLits = 64;
 constexpr int kMaxStack = 16;
-constexpr int kThreads = 256;
-// B1 keeps acc (4 B) + count (4 B) per segment: 8192 segments = 64 KB of
-// dynamic shared memory, above the 48 KB default (cudaFuncSetAttribute);
-// B2 keeps acc only (32 KB)
-constexpr int kSmemSegments = 8192;
+constexpr int kThreads = 256;            // B3's blocks
 
 enum Op : int { kSum = 0, kCount = 1, kMin = 2, kMax = 3 };
 enum DType : int { kI32 = 0, kF32 = 1 };
 
-// program opcodes; keep in sync with _OPCODES in analytics/kernels.py
+// Program opcodes; keep in sync with _OPCODES in analytics/kernels.py.
+// An instruction is code = opcode | source << 8 | kRev, arg: the program
+// runs on an accumulator A (the value of the top of the expression's
+// stack).  LOAD sets A to its operand, PUSH spills A to stack level arg,
+// a unary op maps A, and a binary op sets A = A op operand (with kRev,
+// operand op A), the operand being a column slot, a literal or a spilled
+// level, named by its source.
 enum Code : int {
-  C_COL = 0, C_LIT = 1, C_I2F = 2, C_F2I = 3, C_F2B = 4,
+  C_LOAD = 0, C_PUSH = 1, C_I2F = 2, C_F2I = 3, C_F2B = 4,
   C_ADD_I = 10, C_SUB_I = 11, C_MUL_I = 12, C_MOD_I = 13,
   C_AND = 14, C_OR = 15, C_NOT_I = 16, C_NOT_B = 17,
   C_ADD_F = 20, C_SUB_F = 21, C_MUL_F = 22, C_DIV_F = 23, C_MOD_F = 24,
@@ -56,6 +56,8 @@ enum Code : int {
   C_GT_F = 40, C_GE_F = 41, C_LT_F = 42, C_LE_F = 43, C_EQ_F = 44,
   C_NE_F = 45,
 };
+enum Src : int { S_NONE = 0, S_COL = 1, S_LIT = 2, S_STK = 3 };
+constexpr int kRev = 1 << 10;
 
 struct FusedParams {
   const int32_t* cols[kMaxCols];   // int32 or float32 bits, one per slot
@@ -64,6 +66,7 @@ struct FusedParams {
   int32_t lits[kMaxLits];          // int32 or float32 bits
   int n_pred;                      // pred program: code[0, n_pred)
   int n_val;                       // value program: code[n_pred, +n_val)
+  int n_cols;                      // slots in use
 };
 
 template <typename T>
@@ -95,60 +98,8 @@ __device__ __forceinline__ float floor_mod_f(float a, float b) {
   return r;
 }
 
-// run code[lo, hi) on one row; the result is st[0] (int32 or f32 bits)
-__device__ int32_t run_program(const FusedParams& p, int lo, int hi,
-                               int64_t row) {
-  int32_t st[kMaxStack];
-  int sp = 0;
-  for (int pc = lo; pc < hi; ++pc) {
-    const int c = p.code[pc];
-    const int a = p.arg[pc];
-    if (c == C_COL) { st[sp++] = p.cols[a][row]; continue; }
-    if (c == C_LIT) { st[sp++] = p.lits[a]; continue; }
-    int32_t& x = st[sp - 1];
-    switch (c) {
-      case C_I2F: x = f_bits((float)x); continue;
-      case C_F2I: x = (int32_t)bits_f(x); continue;   // truncates
-      case C_F2B: x = bits_f(x) != 0.0f; continue;    // NaN -> true
-      case C_NOT_I: x = ~x; continue;
-      case C_NOT_B: x = x ^ 1; continue;
-      default: break;
-    }
-    const int32_t y = st[--sp];
-    int32_t& l = st[sp - 1];
-    const float lf = bits_f(l), yf = bits_f(y);
-    switch (c) {
-      case C_ADD_I: l = wrap_add(l, y); break;
-      case C_SUB_I: l = wrap_sub(l, y); break;
-      case C_MUL_I: l = wrap_mul(l, y); break;
-      case C_MOD_I: l = floor_mod_i(l, y); break;
-      case C_AND: l = l & y; break;                    // no short-circuit
-      case C_OR: l = l | y; break;
-      case C_ADD_F: l = f_bits(__fadd_rn(lf, yf)); break;
-      case C_SUB_F: l = f_bits(__fsub_rn(lf, yf)); break;
-      case C_MUL_F: l = f_bits(__fmul_rn(lf, yf)); break;
-      case C_DIV_F: l = f_bits(__fdiv_rn(lf, yf)); break;
-      case C_MOD_F: l = f_bits(floor_mod_f(lf, yf)); break;
-      case C_GT_I: l = l > y; break;
-      case C_GE_I: l = l >= y; break;
-      case C_LT_I: l = l < y; break;
-      case C_LE_I: l = l <= y; break;
-      case C_EQ_I: l = l == y; break;
-      case C_NE_I: l = l != y; break;
-      case C_GT_F: l = lf > yf; break;
-      case C_GE_F: l = lf >= yf; break;
-      case C_LT_F: l = lf < yf; break;
-      case C_LE_F: l = lf <= yf; break;
-      case C_EQ_F: l = lf == yf; break;
-      case C_NE_F: l = lf != yf; break;
-      default: break;
-    }
-  }
-  return st[0];
-}
-
 // ---------------------------------------------------------------------------
-// accumulators: one fold per row, atomic on shared or global memory
+// folds shared by the kernels
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -156,6 +107,56 @@ __device__ __forceinline__ float nan_min(float a, float b) {
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+template <typename T, int OP>
+__device__ __forceinline__ T identity() {
+  if constexpr (OP == kSum || OP == kCount) {
+    return T(0);
+  } else if constexpr (kIsF32<T>) {
+    return OP == kMin ? __int_as_float(0x7f800000)     // +inf
+                      : __int_as_float(0xff800000);    // -inf
+  } else {
+    return OP == kMin ? T(2147483647) : T(-2147483647 - 1);
+  }
+}
+
+// where B1 and B2 start every segment: the reference's identities
+// (repro.analytics.kernels._identity), whose int32 max is -INT32_MAX, so a
+// segment of INT32_MIN values and an empty one both give -INT32_MAX there
+template <typename T, int OP>
+__device__ __forceinline__ T start() {
+  if constexpr (!kIsF32<T> && OP == kMax) return T(-2147483647);
+  else return identity<T, OP>();
+}
+
+// a fold of two partial results (counts add); f32 min/max propagate NaN
+// as jnp.minimum / jnp.maximum do
+template <typename T, int OP>
+__device__ __forceinline__ T combine(T a, T b) {
+  constexpr bool kAdd = OP == kSum || OP == kCount;
+  if constexpr (kIsF32<T>) {
+    return kAdd ? __fadd_rn(a, b)
+         : OP == kMin ? nan_min(a, b) : nan_max(a, b);
+  } else {
+    return kAdd ? wrap_add(a, b)
+         : OP == kMin ? (b < a ? b : a) : (b > a ? b : a);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T from_bits(int32_t x) {
+  if constexpr (kIsF32<T>) return bits_f(x);
+  else return x;
+}
+
+// a fixed __shfl_xor_sync tree over the warp; every lane ends with the fold
+template <typename T, int OP>
+__device__ __forceinline__ T warp_fold(T acc) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    acc = combine<T, OP>(acc, __shfl_xor_sync(0xffffffffu, acc, o));
+  return acc;
 }
 
 // float min/max have no native atomic: compare-and-swap on the bits,
@@ -175,8 +176,9 @@ __device__ __forceinline__ void atomic_minmax_f(float* addr, float v) {
   }
 }
 
+// one row folded into global memory with an atomic (above kSmemSegments)
 template <typename T, int OP>
-__device__ __forceinline__ void fold(T* acc, int seg, T v) {
+__device__ __forceinline__ void atomic_fold(T* acc, int seg, T v) {
   if constexpr (OP == kSum) {
     atomicAdd(acc + seg, v);               // int32 wraps like np.add.at
   } else if constexpr (OP == kCount) {
@@ -190,113 +192,506 @@ __device__ __forceinline__ void fold(T* acc, int seg, T v) {
   }
 }
 
-template <typename T, int OP>
-__device__ __forceinline__ T identity() {
-  if constexpr (OP == kSum || OP == kCount) {
-    return T(0);
-  } else if constexpr (kIsF32<T>) {
-    return OP == kMin ? __int_as_float(0x7f800000)     // +inf
-                      : __int_as_float(0xff800000);    // -inf
-  } else {
-    return OP == kMin ? T(2147483647) : T(-2147483647 - 1);
-  }
+// ---------------------------------------------------------------------------
+// B1 (fused filter -> grouped reduce) and B2 (grouped reduce by id)
+//
+// What bounds them: bytes (query (a): 4,194,304 ids and predicate values
+// for every row, the value column for the survivors).  What held the
+// first port back (measured on the H100): 0.0297 of its 0.0652 ms went to
+// the loads, 0.0235 to walking the program a row at a time, 0.0036 to
+// the fold, 0.0084 to a flush of global atomics from ~800 blocks.  The
+// design reads each row once in 16-byte loads with many warps in flight
+// and keeps every other cost per row a few instructions:
+//
+// * A persistent grid: one block of up to kMaxWarps warps an SM (fewer
+//   blocks for a short call: kMinBlockRows rows a block at least), each
+//   walking a contiguous run of rows in tiles of kRows rows a thread, an
+//   int4 per array; a group of 4 rows that the run's end cuts, or whose
+//   base pointer is not on 16 bytes, loads its rows one by one.  One
+//   thread keeps a bulk L2 prefetch of the ids and columns kPrefetchTiles
+//   tiles ahead.  B1 reads its value column only where a row survives,
+//   B2's count never reads its values.
+// * The program runs once per instruction for a thread's kRows rows: the
+//   accumulator in registers, a spilled level in shared memory
+//   ([level][row][thread]), so ptxas keeps no stack frame.
+// * Tables in shared memory:
+//     f32 sums over n_seg <= kLaneSegments: a table a thread
+//       ([seg][thread], no bank conflicts), folded with a plain
+//       read-modify-write, so the order of the sum is fixed;
+//     every other op up to kLaneSegments: a table a warp, folded with
+//       shared-memory atomics (query (c)'s 32-bin count: 32 x 32 words to
+//       start and flush, no contention between warps);
+//     up to kSmemSegments: one table a block, folded with shared-memory
+//       atomics;
+//     above: atomics into global memory.
+//   f32 min/max fold as order-preserving int keys, so with native
+//   atomicMin/atomicMax, NaN winning as in nan_min/nan_max.
+// * Each block writes its partial plainly into scratch[G][n_seg] (the
+//   start value and count 0 where it saw no row), and a second launch
+//   (combine_kernel) folds the G partials of each segment in block order.
+//
+// So every result is the same bits from run to run except an f32 sum over
+// more than kLaneSegments segments, whose shared (or global) atomics add
+// in the order the warps arrive.  A table a warp, whose lanes sharing a
+// segment fold by __match_any_sync and a fixed shuffle tree, made those
+// sums repeat too, but 4,096 segments then fit 13 warps an SM, and the
+// loads starved (0.0571 ms at query (a) against the first port's 0.0695
+// in one run; PERF.md).
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 4;                 // rows a thread per tile
+constexpr int kVecs = kRows / 4;         // its int4 loads per array
+constexpr int kMaxWarps = 32;            // 1,024 threads a block at most
+constexpr int kLaneSegments = 32;        // thread/warp tables up to here
+constexpr int kSmemSegments = 8192;      // a table a block up to here
+constexpr int64_t kMinBlockRows = 16384;
+constexpr size_t kSmemBudget = 227 * 1024;
+constexpr int kCombineParts = 32;        // second pass: 32 segments x 32
+constexpr int kPrefetchTiles = 2;        // tiles the L2 prefetch runs ahead
+
+enum Mode : int { kLane = 0, kBlock = 1, kGlobal = 2 };
+
+// ask the copy engine to bring bytes (a multiple of 16, from a 16-byte
+// boundary) into L2: no registers or shared memory, nothing to wait on
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;"
+               :: "l"(p), "r"(bytes) : "memory");
 }
 
-// Block-private accumulators for the first n_seg segments: shared
-// memory holds acc[n_seg] and, for B1, cnt[n_seg] (the survivor counts
-// it returns).  A thread folds its row into shared memory; the block then
-// folds each segment into global memory once, skipping segments that no
-// row reached (B1: cnt == 0; B2: acc still the identity, whose fold would
-// change nothing).
-template <typename T, int OP, bool WITH_CNT>
-struct SmemAcc {
-  T* acc;
-  int* cnt;
-  int n;
-  __device__ void init(int n_seg) {
-    extern __shared__ int smem[];
-    acc = reinterpret_cast<T*>(smem);
-    cnt = smem + n_seg;
-    n = n_seg;
-    for (int s = threadIdx.x; s < n_seg; s += blockDim.x) {
-      acc[s] = identity<T, OP>();
-      if (WITH_CNT) cnt[s] = 0;
-    }
-    __syncthreads();
-  }
-  __device__ __forceinline__ void add(int seg, T v) {
-    fold<T, OP>(acc, seg, v);
-    if (WITH_CNT) atomicAdd(cnt + seg, 1);
-  }
-  __device__ void flush(T* g_acc, int* g_cnt) {
-    __syncthreads();
-    for (int s = threadIdx.x; s < n; s += blockDim.x) {
-      const T a = acc[s];
-      if constexpr (WITH_CNT) {
-        const int c = cnt[s];
-        if (c == 0) continue;
-        atomicAdd(g_cnt + s, c);
-      } else {
-        if (a == identity<T, OP>()) continue;   // NaN never equals: folded
-      }
-      if constexpr (OP == kCount) atomicAdd(g_acc + s, a);
-      else fold<T, OP>(g_acc, s, a);
-    }
-  }
+// one thread's rows in one tile: rows base[k] + j, j < 4; bit 4k + j of
+// `live` says the row lies in the block's run
+struct Span {
+  int64_t base[kVecs];
+  uint32_t live;
 };
 
-// ---------------------------------------------------------------------------
-// B1: fused filter -> grouped reduce
-// ---------------------------------------------------------------------------
-
-template <typename T, int OP, bool SMEM>
-__global__ void __launch_bounds__(kThreads)
-fused_kernel(const __grid_constant__ FusedParams p, const int32_t* ids,
-             int64_t n, T* g_acc, int* g_cnt, int n_seg) {
-  SmemAcc<T, OP, true> sm;
-  if (SMEM) sm.init(n_seg);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += stride) {
-    const int seg = ids[r];
-    if (seg < 0 || seg >= n_seg) continue;       // padding / dropped row
-    if (p.n_pred && run_program(p, 0, p.n_pred, r) == 0) continue;
-    T v = T(1);
-    if (OP != kCount && p.n_val) {
-      const int32_t b = run_program(p, p.n_pred, p.n_pred + p.n_val, r);
-      if constexpr (kIsF32<T>) v = __int_as_float(b);
-      else v = b;
-    }
-    if (SMEM) {
-      sm.add(seg, v);
+// c[row] for each row of the span whose bit is set in mask, else 0
+__device__ __forceinline__ void load_rows(const int32_t* __restrict__ c,
+                                          const Span& s, uint32_t mask,
+                                          bool vec, int32_t (&out)[kRows]) {
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k) {
+    const uint32_t m = (mask >> (4 * k)) & 0xfu;
+    if (vec && m == 0xfu) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(c + s.base[k]));
+      out[4 * k] = q.x;
+      out[4 * k + 1] = q.y;
+      out[4 * k + 2] = q.z;
+      out[4 * k + 3] = q.w;
     } else {
-      fold<T, OP>(g_acc, seg, v);
-      atomicAdd(g_cnt + seg, 1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        out[4 * k + j] = (m >> j) & 1u ? __ldg(c + s.base[k] + j) : 0;
     }
   }
-  if (SMEM) sm.flush(g_acc, g_cnt);
 }
 
-// ---------------------------------------------------------------------------
-// B2: grouped reduce by segment id
-// ---------------------------------------------------------------------------
+#define SAGE_ROWS(expr)                                    \
+  _Pragma("unroll") for (int r = 0; r < kRows; ++r) {      \
+    const int32_t x = A[r];                                \
+    A[r] = (expr);                                         \
+  }                                                        \
+  break;
 
-template <typename T, int OP, bool SMEM>
-__global__ void __launch_bounds__(kThreads)
-segment_kernel(const T* values, const int32_t* ids, int64_t n, T* g_acc,
-               int n_seg) {
-  SmemAcc<T, OP, false> sm;
-  if (SMEM) sm.init(n_seg);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += stride) {
-    const int seg = ids[r];
-    if (seg < 0 || seg >= n_seg) continue;
-    if (SMEM) sm.add(seg, values[r]);
-    else fold<T, OP>(g_acc, seg, values[r]);
+__device__ __forceinline__ void unary_rows(int op, int32_t (&A)[kRows]) {
+  switch (op) {
+    case C_I2F: SAGE_ROWS(f_bits((float)x))
+    case C_F2I: SAGE_ROWS((int32_t)bits_f(x))          // truncates
+    case C_F2B: SAGE_ROWS(bits_f(x) != 0.0f)           // NaN -> true
+    case C_NOT_I: SAGE_ROWS(~x)
+    case C_NOT_B: SAGE_ROWS(x ^ 1)
+    default: break;
   }
-  if (SMEM) sm.flush(g_acc, nullptr);
 }
+#undef SAGE_ROWS
+
+#define SAGE_ROWS(expr)                                    \
+  _Pragma("unroll") for (int r = 0; r < kRows; ++r) {      \
+    const int32_t l = A[r], y = B[r];                      \
+    const float lf = bits_f(l), yf = bits_f(y);            \
+    (void)lf; (void)yf;                                    \
+    A[r] = (expr);                                         \
+  }                                                        \
+  break;
+
+__device__ __forceinline__ void binary_rows(int op, int32_t (&A)[kRows],
+                                            const int32_t (&B)[kRows]) {
+  switch (op) {
+    case C_ADD_I: SAGE_ROWS(wrap_add(l, y))
+    case C_SUB_I: SAGE_ROWS(wrap_sub(l, y))
+    case C_MUL_I: SAGE_ROWS(wrap_mul(l, y))
+    case C_MOD_I: SAGE_ROWS(floor_mod_i(l, y))
+    case C_AND: SAGE_ROWS(l & y)                         // no short-circuit
+    case C_OR: SAGE_ROWS(l | y)
+    case C_ADD_F: SAGE_ROWS(f_bits(__fadd_rn(lf, yf)))
+    case C_SUB_F: SAGE_ROWS(f_bits(__fsub_rn(lf, yf)))
+    case C_MUL_F: SAGE_ROWS(f_bits(__fmul_rn(lf, yf)))
+    case C_DIV_F: SAGE_ROWS(f_bits(__fdiv_rn(lf, yf)))
+    case C_MOD_F: SAGE_ROWS(f_bits(floor_mod_f(lf, yf)))
+    case C_GT_I: SAGE_ROWS(l > y)
+    case C_GE_I: SAGE_ROWS(l >= y)
+    case C_LT_I: SAGE_ROWS(l < y)
+    case C_LE_I: SAGE_ROWS(l <= y)
+    case C_EQ_I: SAGE_ROWS(l == y)
+    case C_NE_I: SAGE_ROWS(l != y)
+    case C_GT_F: SAGE_ROWS(lf > yf)
+    case C_GE_F: SAGE_ROWS(lf >= yf)
+    case C_LT_F: SAGE_ROWS(lf < yf)
+    case C_LE_F: SAGE_ROWS(lf <= yf)
+    case C_EQ_F: SAGE_ROWS(lf == yf)
+    case C_NE_F: SAGE_ROWS(lf != yf)
+    default: break;
+  }
+}
+#undef SAGE_ROWS
+
+// run code[lo, hi) on the span's rows (columns read where `mask` is set);
+// A ends as the program's value.  stk: this thread's first stack word,
+// level l of row r at stk[(l * kRows + r) * blockDim.x].
+__device__ __forceinline__ void run_rows(const FusedParams& p, int lo, int hi,
+                                         const Span& s, uint32_t mask,
+                                         bool vec, int32_t* stk,
+                                         int32_t (&A)[kRows]) {
+  const int nt = blockDim.x;
+  for (int pc = lo; pc < hi; ++pc) {
+    const int c = p.code[pc], a = p.arg[pc];
+    const int op = c & 0xff, src = (c >> 8) & 3;
+    if (op == C_PUSH) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) stk[(a * kRows + r) * nt] = A[r];
+      continue;
+    }
+    if (src == S_NONE) {
+      unary_rows(op, A);
+      continue;
+    }
+    int32_t B[kRows];
+    if (src == S_COL) {
+      load_rows(p.cols[a], s, mask, vec, B);
+    } else {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        B[r] = src == S_LIT ? p.lits[a] : stk[(a * kRows + r) * nt];
+    }
+    if (op == C_LOAD) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) A[r] = B[r];
+      continue;
+    }
+    if (c & kRev) {
+      int32_t L[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) L[r] = B[r];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) B[r] = A[r];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) A[r] = L[r];
+    }
+    binary_rows(op, A, B);
+  }
+}
+
+// f32 min/max in a block table: an int key whose order is the float's
+// (-0 below +0), NaN the least key for min and the greatest for max, so
+// a NaN wins as it does in nan_min/nan_max
+template <int OP>
+__device__ __forceinline__ int f32_key(float v) {
+  if (v != v) return OP == kMin ? (-2147483647 - 1) : 2147483647;
+  const int b = __float_as_int(v);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+__device__ __forceinline__ float key_f32(int k) {
+  if (k == -2147483647 - 1 || k == 2147483647)
+    return __int_as_float(0x7fc00000);
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+// one row folded into a block table with a shared-memory atomic
+template <typename T, int OP>
+__device__ __forceinline__ void block_fold(T* tab, int seg, T v) {
+  if constexpr (OP == kSum) {
+    atomicAdd(tab + seg, v);               // f32: in the order warps arrive
+  } else if constexpr (OP == kCount) {
+    atomicAdd(tab + seg, T(1));
+  } else if constexpr (kIsF32<T>) {
+    int* t = reinterpret_cast<int*>(tab) + seg;
+    if constexpr (OP == kMin) atomicMin(t, f32_key<kMin>(v));
+    else atomicMax(t, f32_key<kMax>(v));
+  } else if constexpr (OP == kMin) {
+    atomicMin(tab + seg, v);
+  } else {
+    atomicMax(tab + seg, v);
+  }
+}
+
+// a block table's word for the start value (f32 min/max hold keys)
+template <typename T, int OP>
+__device__ __forceinline__ T block_start() {
+  if constexpr (kIsF32<T> && (OP == kMin || OP == kMax))
+    return __int_as_float(f32_key<OP>(start<T, OP>()));
+  else return start<T, OP>();
+}
+template <typename T, int OP>
+__device__ __forceinline__ T block_value(T word) {
+  if constexpr (kIsF32<T> && (OP == kMin || OP == kMax))
+    return key_f32(__float_as_int(word));
+  else return word;
+}
+// two block-table words folded (f32 min/max: their keys)
+template <typename T, int OP>
+__device__ __forceinline__ T block_word(T a, T b) {
+  if constexpr (kIsF32<T> && (OP == kMin || OP == kMax)) {
+    const int x = __float_as_int(a), y = __float_as_int(b);
+    return __int_as_float(OP == kMin ? (y < x ? y : x) : (y > x ? y : x));
+  } else {
+    return combine<T, OP>(a, b);
+  }
+}
+
+// words of shared memory before the stack levels (`copies` block tables)
+template <int MODE, bool CNT>
+__host__ __device__ __forceinline__ int64_t table_words(int n_seg, int nt,
+                                                        int copies) {
+  if (MODE == kLane) return (int64_t)n_seg * nt * (CNT ? 2 : 1);
+  if (MODE == kBlock) return (int64_t)n_seg * copies * (CNT ? 2 : 1);
+  return 0;
+}
+
+// The body of B1 and B2: rows(s, keep, v) returns the rows of span s that
+// survive (of `keep`, the rows with an id in [0, n_seg)) and sets v[r] for
+// them.  part/part_cnt: this launch's [G][n_seg] partials (MODE != kGlobal);
+// copies: kBlock's tables (one a warp, or 1); g_acc/g_cnt: the outputs
+// (kGlobal only, prefilled).
+template <typename T, int OP, int MODE, bool CNT, typename RowFn,
+          typename PrefetchFn>
+__device__ __forceinline__ void aggregate(
+    const int32_t* __restrict__ ids, int64_t n, int64_t chunk, int n_seg,
+    int copies, bool vec, T* __restrict__ part, int* __restrict__ part_cnt,
+    T* __restrict__ g_acc, int* __restrict__ g_cnt, RowFn rows,
+    PrefetchFn prefetch_cols) {
+  extern __shared__ __align__(16) int smem[];
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int nw = nt >> 5, warp = tid >> 5, lane = tid & 31;
+  T* tab = reinterpret_cast<T*>(smem);  // lane: [seg][nt]; block: [copy][seg]
+  const int n_tab = MODE == kLane ? n_seg * nt : n_seg * copies;
+  int* ctab = smem + n_tab;
+  const int copy = copies > 1 ? warp * n_seg : 0;     // this warp's table
+  if constexpr (MODE != kGlobal) {
+    for (int i = tid; i < n_tab; i += nt)
+      tab[i] = MODE == kLane ? start<T, OP>() : block_start<T, OP>();
+    if (CNT)
+      for (int i = tid; i < n_tab; i += nt) ctab[i] = 0;
+    __syncthreads();
+  }
+
+  const int64_t r0 = (int64_t)blockIdx.x * chunk;
+  const int64_t r1 = r0 + chunk < n ? r0 + chunk : n;
+  const int64_t tile = (int64_t)kRows * nt;
+  // one thread keeps the L2 prefetch kPrefetchTiles tiles ahead of the
+  // block's loads (on 16-byte rows only: the copy engine's alignment)
+  auto prefetch = [&](int64_t t) {
+    if (!vec || tid != 0 || t >= r1) return;
+    const uint32_t bytes =
+        (uint32_t)((r1 - t < tile ? r1 - t : tile) * 4) & ~15u;
+    if (bytes == 0) return;
+    prefetch_l2(ids + t, bytes);
+    prefetch_cols(t, bytes);
+  };
+  for (int d = 0; d < kPrefetchTiles; ++d) prefetch(r0 + d * tile);
+  for (int64_t t0 = r0; t0 < r1; t0 += tile) {
+    prefetch(t0 + kPrefetchTiles * tile);
+    Span s;
+    s.live = 0;
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      s.base[k] = t0 + 4 * ((int64_t)tid + (int64_t)k * nt);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (s.base[k] + j < r1) s.live |= 1u << (4 * k + j);
+    }
+    int32_t seg[kRows];
+    load_rows(ids, s, s.live, vec, seg);
+    uint32_t keep = 0;               // ids in [0, n_seg), in the run
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      keep |= (uint32_t)((uint32_t)seg[r] < (uint32_t)n_seg) << r;
+    keep &= s.live;
+    T v[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) v[r] = T(1);
+    keep = rows(s, keep, v);
+
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const bool k = (keep >> r) & 1u;
+      if constexpr (MODE == kLane) {
+        if (k) {
+          T* a = tab + seg[r] * nt + tid;
+          *a = combine<T, OP>(*a, v[r]);
+          if (CNT) ctab[seg[r] * nt + tid] += 1;
+        }
+      } else if constexpr (MODE == kBlock) {
+        if (k) {
+          block_fold<T, OP>(tab + copy, seg[r], v[r]);
+          if (CNT) atomicAdd(ctab + copy + seg[r], 1);
+        }
+      } else {
+        if (k) {
+          atomic_fold<T, OP>(g_acc, seg[r], v[r]);
+          if (CNT) atomicAdd(g_cnt + seg[r], 1);
+        }
+      }
+    }
+  }
+  if constexpr (MODE == kGlobal) return;
+
+  // the second pass may launch now; it waits for this grid to finish
+  asm volatile("griddepcontrol.launch_dependents;");
+  // the block's partial, each segment folded in a fixed order
+  __syncthreads();
+  T* out = part + (int64_t)blockIdx.x * n_seg;
+  int* out_cnt = part_cnt + (int64_t)blockIdx.x * n_seg;
+  if constexpr (MODE == kBlock) {
+    for (int sg = tid; sg < n_seg; sg += nt) {
+      T x = tab[sg];
+      int c = CNT ? ctab[sg] : 0;
+      for (int w = 1; w < copies; ++w) {      // order-free: ints or keys
+        x = block_word<T, OP>(x, tab[w * n_seg + sg]);
+        if (CNT) c += ctab[w * n_seg + sg];
+      }
+      out[sg] = block_value<T, OP>(x);
+      if (CNT) out_cnt[sg] = c;
+    }
+  } else {
+    // a warp a segment: lane l folds threads l, l + 32, ... in order, then
+    // the fixed xor tree across the lanes
+    for (int sg = warp; sg < n_seg; sg += nw) {
+      T x = tab[sg * nt + lane];
+      int c = CNT ? ctab[sg * nt + lane] : 0;
+      for (int i = lane + 32; i < nt; i += 32) {
+        x = combine<T, OP>(x, tab[sg * nt + i]);
+        if (CNT) c += ctab[sg * nt + i];
+      }
+      x = warp_fold<T, OP>(x);
+      if (CNT) c = warp_fold<int, kSum>(c);
+      if (lane == 0) {
+        out[sg] = x;
+        if (CNT) out_cnt[sg] = c;
+      }
+    }
+  }
+}
+
+template <typename T, int OP, int MODE>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+fused_kernel(const __grid_constant__ FusedParams p,
+             const int32_t* __restrict__ ids, int64_t n, int64_t chunk,
+             int n_seg, int copies, int vec, T* part, int* part_cnt,
+             T* g_acc, int* g_cnt) {
+  extern __shared__ __align__(16) int smem[];
+  int32_t* stk = smem + table_words<MODE, true>(n_seg, blockDim.x, copies) +
+                 threadIdx.x;
+  aggregate<T, OP, MODE, true>(
+      ids, n, chunk, n_seg, copies, vec != 0, part, part_cnt, g_acc, g_cnt,
+      [&](const Span& s, uint32_t keep, T(&v)[kRows]) {
+        int32_t A[kRows];
+        if (p.n_pred) {
+          run_rows(p, 0, p.n_pred, s, s.live, vec != 0, stk, A);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+            if (A[r] == 0) keep &= ~(1u << r);
+        }
+        if constexpr (OP != kCount) {
+          if (p.n_val) {
+            run_rows(p, p.n_pred, p.n_pred + p.n_val, s, keep, vec != 0, stk,
+                     A);
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) v[r] = from_bits<T>(A[r]);
+          }
+        }
+        return keep;
+      },
+      [&](int64_t t, uint32_t bytes) {
+        for (int i = 0; i < p.n_cols; ++i) prefetch_l2(p.cols[i] + t, bytes);
+      });
+}
+
+template <typename T, int OP, int MODE>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+segment_kernel(const T* __restrict__ values, const int32_t* __restrict__ ids,
+               int64_t n, int64_t chunk, int n_seg, int copies, int vec,
+               T* part, T* g_acc) {
+  aggregate<T, OP, MODE, false>(
+      ids, n, chunk, n_seg, copies, vec != 0, part, nullptr, g_acc, nullptr,
+      [&](const Span& s, uint32_t keep, T(&v)[kRows]) {
+        if constexpr (OP != kCount) {        // count never reads its values
+          int32_t b[kRows];
+          load_rows(reinterpret_cast<const int32_t*>(values), s, keep,
+                    vec != 0, b);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) v[r] = from_bits<T>(b[r]);
+        }
+        return keep;
+      },
+      [&](int64_t t, uint32_t bytes) {
+        if constexpr (OP != kCount) prefetch_l2(values + t, bytes);
+      });
+}
+
+// second pass: out[s] for the block's 32 segments, the G partials folded
+// in block order, kCombineParts runs of ceil(G / kCombineParts) blocks (a
+// warp a run at a time, a lane a segment), then the runs in order by warp
+// 0.  Launched as a programmatic dependent of the first pass, so its
+// launch overlaps that grid's end; griddepcontrol.wait holds it until the
+// first pass has finished and its partials are visible.
+template <typename T, int OP, bool CNT>
+__global__ void __launch_bounds__(32 * kCombineParts)
+combine_kernel(const T* __restrict__ part, const int* __restrict__ part_cnt,
+               int G, int n_seg, T* __restrict__ out,
+               int* __restrict__ out_cnt) {
+  __shared__ T xs[kCombineParts * 32];
+  __shared__ int cs[kCombineParts * 32];
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const int sg = blockIdx.x * 32 + lane;
+  const int per = (G + kCombineParts - 1) / kCombineParts;
+  for (int q = threadIdx.x >> 5; q < kCombineParts; q += nw) {
+    const int g1 = (q + 1) * per < G ? (q + 1) * per : G;
+    T x = start<T, OP>();
+    int c = 0;
+    if (sg < n_seg) {
+#pragma unroll 4
+      for (int g = q * per; g < g1; ++g) {
+        x = combine<T, OP>(x, __ldcg(part + (int64_t)g * n_seg + sg));
+        if (CNT) c += __ldcg(part_cnt + (int64_t)g * n_seg + sg);
+      }
+    }
+    xs[q * 32 + lane] = x;
+    if (CNT) cs[q * 32 + lane] = c;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32 && sg < n_seg) {
+    T x = xs[lane];
+    int c = CNT ? cs[lane] : 0;
+    for (int j = 1; j < kCombineParts; ++j) {
+      x = combine<T, OP>(x, xs[j * 32 + lane]);
+      if (CNT) c += cs[j * 32 + lane];
+    }
+    out[sg] = x;
+    if (CNT) out_cnt[sg] = c;
+  }
+}
+
+// the global-atomic path starts every segment from start() and count 0
+template <typename T, int OP>
+__global__ void fill_kernel(T* out, int* cnt, int n_seg) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_seg) {
+    out[i] = start<T, OP>();
+    if (cnt) cnt[i] = 0;
+  }
+}
+
 
 // ---------------------------------------------------------------------------
 // B3: window reduce, many threads folding each window straight from the
@@ -322,23 +717,6 @@ segment_kernel(const T* values, const int32_t* ids, int64_t n, T* g_acc,
 constexpr int64_t kBlockWindow = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int64_t kMaxWindowGrid = int64_t(1) << 20;   // grid-stride above
-
-template <typename T, int OP>
-__device__ __forceinline__ T combine(T a, T b) {
-  if constexpr (kIsF32<T>) {
-    return OP == kSum ? __fadd_rn(a, b)
-         : OP == kMin ? nan_min(a, b) : nan_max(a, b);
-  } else {
-    return OP == kSum ? wrap_add(a, b)
-         : OP == kMin ? (b < a ? b : a) : (b > a ? b : a);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T from_bits(int32_t x) {
-  if constexpr (kIsF32<T>) return bits_f(x);
-  else return x;
-}
 
 template <typename T, int OP>
 __device__ __forceinline__ T combine4(T acc, int4 q) {
@@ -370,14 +748,6 @@ __device__ __forceinline__ T fold_window(const T* __restrict__ v, int64_t len,
   for (; i < nq; i += lanes) acc = combine4<T, OP>(acc, q[i]);
   const int64_t tail = head + 4 * nq;
   if (lane < len - tail) acc = combine<T, OP>(acc, v[tail + lane]);
-  return acc;
-}
-
-template <typename T, int OP>
-__device__ __forceinline__ T warp_fold(T acc) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    acc = combine<T, OP>(acc, __shfl_xor_sync(0xffffffffu, acc, o));
   return acc;
 }
 
@@ -431,57 +801,191 @@ int sm_count() {
   return n > 0 ? n : 1;
 }
 
-// one resident wave of blocks (grid-stride loops cover the rest)
-template <typename K>
-int grid_for(K kernel, int64_t n, size_t smem) {
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                smem);
-  if (per_sm < 1) per_sm = 1;
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  const int64_t wave = (int64_t)per_sm * sm_count();
-  return (int)(want < wave ? (want > 0 ? want : 1) : wave);
+// B1/B2's grid on the shared-memory paths (its partials' row count): a
+// block an SM, or one per kMinBlockRows rows of a shorter call; 0 above
+// kSmemSegments, where nothing is staged
+int aggregate_blocks(int64_t n, int n_seg) {
+  if (n_seg > kSmemSegments) return 0;
+  const int64_t want = (n + kMinBlockRows - 1) / kMinBlockRows;
+  const int64_t sms = sm_count();
+  return (int)(want < 1 ? 1 : want < sms ? want : sms);
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+struct Plan {
+  int mode, threads, blocks, copies;
+  size_t smem;
+  int64_t chunk;
+};
+
+// Mode, warps and shared memory of one B1/B2 launch: as many warps (up to
+// kMaxWarps) as the tables and the program's stack levels leave room for
+// in kSmemBudget (thread tables of 32 segments: 28 warps for B1, 32 for
+// B2; a block table of 4,096 segments: 32 KB, all 32 warps).  f32_sum:
+// the fold must keep a fixed order (a thread table up to kLaneSegments).
+Plan plan_for(int64_t n, int n_seg, bool cnt, int levels, bool f32_sum) {
+  Plan pl;
+  pl.copies = 1;
+  const size_t stack = (size_t)levels * kRows * 32 * 4;   // a warp's levels
+  const size_t words = cnt ? 2 : 1;                        // acc (+ cnt)
+  size_t per_warp, fixed = 0;
+  if (n_seg <= kLaneSegments && f32_sum) {
+    pl.mode = kLane;
+    per_warp = (size_t)32 * n_seg * 4 * words + stack;
+  } else if (n_seg <= kLaneSegments) {
+    pl.mode = kBlock;                  // a table a warp
+    per_warp = (size_t)n_seg * 4 * words + stack;
+  } else if (n_seg <= kSmemSegments) {
+    pl.mode = kBlock;
+    per_warp = stack;
+    fixed = (size_t)n_seg * 4 * words;
+  } else {
+    pl.mode = kGlobal;
+    per_warp = stack;
+  }
+  size_t warps = kMaxWarps;
+  if (per_warp > 0 && (kSmemBudget - fixed) / per_warp < warps)
+    warps = (kSmemBudget - fixed) / per_warp;
+  pl.threads = (int)warps * 32;
+  if (pl.mode == kBlock && n_seg <= kLaneSegments) pl.copies = (int)warps;
+  pl.smem = fixed + warps * per_warp;
+  if (pl.mode == kGlobal) {
+    const int64_t want = (n + kMinBlockRows - 1) / kMinBlockRows;
+    const int64_t most = 4 * (int64_t)sm_count();
+    pl.blocks = (int)(want < 1 ? 1 : want < most ? want : most);
+  } else {
+    pl.blocks = aggregate_blocks(n, n_seg);
+  }
+  const int64_t per = (n + pl.blocks - 1) / pl.blocks;
+  pl.chunk = (per + 3) / 4 * 4;        // runs start on 16 bytes
+  if (pl.chunk < 4) pl.chunk = 4;
+  return pl;
+}
+
+// stack levels a program spills to (1 + the largest PUSH level)
+int stack_levels(const int* code, const int* arg, int n_code) {
+  int levels = 0;
+  for (int i = 0; i < n_code; ++i)
+    if ((code[i] & 0xff) == C_PUSH && arg[i] + 1 > levels) levels = arg[i] + 1;
+  return levels;
+}
+
+// raise the kernel's dynamic shared-memory limit to kSmemBudget once per
+// device (the tables of a launch are sized under it); one flag per kernel
+template <auto kernel>
+cudaError_t allow_smem() {
+  static std::atomic<uint32_t> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint32_t bit = 1u << (dev & 31);
+  if (done.load() & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kSmemBudget);
+  if (e == cudaSuccess) done.fetch_or(bit);
+  return e;
+}
+
+bool on16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// the G partials of each segment, folded in block order
+template <typename T, int OP, bool CNT>
+cudaError_t launch_combine(const Plan& pl, const T* part, const int* part_cnt,
+                           int n_seg, T* out, int* cnt, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_seg + 31) / 32);
+  cfg.blockDim = dim3(32 * kCombineParts);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, combine_kernel<T, OP, CNT>, part, part_cnt,
+                            pl.blocks, n_seg, out, cnt);
+}
+
+template <typename T, int OP, int MODE>
+cudaError_t launch_fused_mode(const Plan& pl, const FusedParams& p,
+                              const int32_t* ids, int64_t n, T* acc, int* cnt,
+                              int n_seg, int vec, int32_t* scratch,
+                              cudaStream_t s) {
+  auto k = fused_kernel<T, OP, MODE>;
+  cudaError_t e = allow_smem<fused_kernel<T, OP, MODE>>();
+  if (e != cudaSuccess) return e;
+  T* part = reinterpret_cast<T*>(scratch);
+  int* part_cnt = scratch + (int64_t)pl.blocks * n_seg;
+  if (MODE == kGlobal) {
+    fill_kernel<T, OP><<<(n_seg + 255) / 256, 256, 0, s>>>(acc, cnt, n_seg);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  k<<<pl.blocks, pl.threads, pl.smem, s>>>(p, ids, n, pl.chunk, n_seg,
+                                           pl.copies, vec, part, part_cnt,
+                                           acc, cnt);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || MODE == kGlobal) return e;
+  return launch_combine<T, OP, true>(pl, part, part_cnt, n_seg, acc, cnt, s);
 }
 
 template <typename T, int OP>
-cudaError_t launch_fused(const FusedParams& p, const int32_t* ids, int64_t n,
-                         T* acc, int* cnt, int n_seg, cudaStream_t s) {
-  if (n_seg <= kSmemSegments) {
-    const size_t smem = (size_t)n_seg * 8;
-    auto k = fused_kernel<T, OP, true>;
-    cudaError_t e = allow_smem(k, smem);
-    if (e != cudaSuccess) return e;
-    k<<<grid_for(k, n, smem), kThreads, smem, s>>>(p, ids, n, acc, cnt, n_seg);
-  } else {
-    auto k = fused_kernel<T, OP, false>;
-    k<<<grid_for(k, n, 0), kThreads, 0, s>>>(p, ids, n, acc, cnt, n_seg);
+cudaError_t launch_fused(const FusedParams& p, int levels, const int32_t* ids,
+                         int64_t n, T* acc, int* cnt, int n_seg, int vec,
+                         int32_t* scratch, int64_t scratch_rows,
+                         cudaStream_t s) {
+  const Plan pl = plan_for(n, n_seg, true, levels, kIsF32<T> && OP == kSum);
+  if (scratch_rows != aggregate_blocks(n, n_seg)) return cudaErrorInvalidValue;
+  switch (pl.mode) {
+    case kLane:
+      return launch_fused_mode<T, OP, kLane>(pl, p, ids, n, acc, cnt, n_seg,
+                                             vec, scratch, s);
+    case kBlock:
+      return launch_fused_mode<T, OP, kBlock>(pl, p, ids, n, acc, cnt,
+                                              n_seg, vec, scratch, s);
+    default:
+      return launch_fused_mode<T, OP, kGlobal>(pl, p, ids, n, acc, cnt,
+                                               n_seg, vec, scratch, s);
   }
-  return cudaGetLastError();
+}
+
+template <typename T, int OP, int MODE>
+cudaError_t launch_segment_mode(const Plan& pl, const T* v, const int32_t* ids,
+                                int64_t n, T* out, int n_seg, int vec,
+                                T* part, cudaStream_t s) {
+  auto k = segment_kernel<T, OP, MODE>;
+  cudaError_t e = allow_smem<segment_kernel<T, OP, MODE>>();
+  if (e != cudaSuccess) return e;
+  if (MODE == kGlobal) {
+    fill_kernel<T, OP><<<(n_seg + 255) / 256, 256, 0, s>>>(out, nullptr,
+                                                           n_seg);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  k<<<pl.blocks, pl.threads, pl.smem, s>>>(v, ids, n, pl.chunk, n_seg,
+                                           pl.copies, vec, part, out);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || MODE == kGlobal) return e;
+  return launch_combine<T, OP, false>(pl, part, nullptr, n_seg, out, nullptr,
+                                      s);
 }
 
 template <typename T, int OP>
-cudaError_t launch_segment(const T* v, const int32_t* ids, int64_t n, T* acc,
-                           int n_seg, cudaStream_t s) {
-  if (n_seg <= kSmemSegments) {
-    const size_t smem = (size_t)n_seg * 4;
-    auto k = segment_kernel<T, OP, true>;
-    cudaError_t e = allow_smem(k, smem);
-    if (e != cudaSuccess) return e;
-    k<<<grid_for(k, n, smem), kThreads, smem, s>>>(v, ids, n, acc, n_seg);
-  } else {
-    auto k = segment_kernel<T, OP, false>;
-    k<<<grid_for(k, n, 0), kThreads, 0, s>>>(v, ids, n, acc, n_seg);
+cudaError_t launch_segment(const T* v, const int32_t* ids, int64_t n, T* out,
+                           int n_seg, T* scratch, int64_t scratch_rows,
+                           cudaStream_t s) {
+  const Plan pl = plan_for(n, n_seg, false, 0, kIsF32<T> && OP == kSum);
+  if (scratch_rows != aggregate_blocks(n, n_seg)) return cudaErrorInvalidValue;
+  const int vec = on16(ids) && (OP == kCount || on16(v));
+  switch (pl.mode) {
+    case kLane:
+      return launch_segment_mode<T, OP, kLane>(pl, v, ids, n, out, n_seg, vec,
+                                               scratch, s);
+    case kBlock:
+      return launch_segment_mode<T, OP, kBlock>(pl, v, ids, n, out, n_seg,
+                                                vec, scratch, s);
+    default:
+      return launch_segment_mode<T, OP, kGlobal>(pl, v, ids, n, out, n_seg,
+                                                 vec, scratch, s);
   }
-  return cudaGetLastError();
 }
+
 
 template <typename T, int OP>
 cudaError_t launch_window(const T* v, int64_t window, int64_t slide,
@@ -535,19 +1039,32 @@ const char* sage_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// cols: n_cols device pointers; code/arg: n_pred + n_val instructions
+// rows of the partials scratch B1 and B2 take for n rows and n_seg
+// segments (B1: 2 x rows x n_seg int32 words, B2: rows x n_seg values)
+int sage_aggregate_blocks(int64_t n, int n_seg) {
+  if (n < 0 || n_seg <= 0) return 0;
+  return aggregate_blocks(n, n_seg);
+}
+
+// cols: n_cols device pointers; code/arg: n_pred + n_val instructions;
+// scratch: 2 x scratch_rows x n_seg int32 words, scratch_rows =
+// sage_aggregate_blocks(n, n_seg), else cudaErrorInvalidValue
 int sage_fused_aggregate(const void* const* cols, int n_cols,
                          const int* code, const int* arg, int n_pred,
                          int n_val, const int32_t* lits, int n_lits,
                          const int32_t* ids, int64_t n, void* acc, int* cnt,
-                         int n_seg, int dtype, int op, void* stream) {
+                         int n_seg, int dtype, int op, void* scratch,
+                         int64_t scratch_rows, void* stream) {
   if (n_cols < 0 || n_cols > kMaxCols || n_pred < 0 || n_val < 0 ||
       n_pred + n_val > kMaxCode || n_lits < 0 || n_lits > kMaxLits ||
-      n_seg <= 0)
+      n_seg <= 0 || n < 0)
     return (int)cudaErrorInvalidValue;
   FusedParams p = {};
-  for (int i = 0; i < n_cols; ++i)
+  int vec = on16(ids);
+  for (int i = 0; i < n_cols; ++i) {
     p.cols[i] = static_cast<const int32_t*>(cols[i]);
+    vec = vec && on16(cols[i]);
+  }
   for (int i = 0; i < n_pred + n_val; ++i) {
     p.code[i] = code[i];
     p.arg[i] = arg[i];
@@ -555,24 +1072,30 @@ int sage_fused_aggregate(const void* const* cols, int n_cols,
   for (int i = 0; i < n_lits; ++i) p.lits[i] = lits[i];
   p.n_pred = n_pred;
   p.n_val = n_val;
+  p.n_cols = n_cols;
+  const int levels = stack_levels(code, arg, n_pred + n_val);
+  if (levels >= kMaxStack) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, op, [&](auto k) {
     using T = typename decltype(k)::type;
     return (int)launch_fused<T, decltype(k)::op>(
-        p, ids, n, static_cast<T*>(acc), cnt, n_seg, s);
+        p, levels, ids, n, static_cast<T*>(acc), cnt, n_seg, vec,
+        static_cast<int32_t*>(scratch), scratch_rows, s);
   });
 }
 
+// scratch: scratch_rows x n_seg values, scratch_rows =
+// sage_aggregate_blocks(n, n_seg), else cudaErrorInvalidValue
 int sage_segment_reduce(const void* values, const int32_t* ids, int64_t n,
                         void* out, int n_seg, int dtype, int op,
-                        void* stream) {
-  if (n_seg <= 0) return (int)cudaErrorInvalidValue;
+                        void* scratch, int64_t scratch_rows, void* stream) {
+  if (n_seg <= 0 || n < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, op, [&](auto k) {
     using T = typename decltype(k)::type;
     return (int)launch_segment<T, decltype(k)::op>(
         static_cast<const T*>(values), ids, n, static_cast<T*>(out), n_seg,
-        s);
+        static_cast<T*>(scratch), scratch_rows, s);
   });
 }
 

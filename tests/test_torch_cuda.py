@@ -8,6 +8,8 @@ Integer results must be equal, f32 min/max equal and f32 sums within
 ``1e-4`` of the segment's sum of |v| (atomics add in another order).
 ``chip_smoke.py`` covers the same ground at the main path's sizes.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -45,8 +47,18 @@ def _data(dev, n, n_seg, seed):
     return ids, ints, floats
 
 
-@pytest.mark.parametrize("n,n_seg", [(1, 1), (1025, 128), (70000, 4096),
-                                     (70000, 60000)])
+# B1 and B2 keep a table a thread up to 32 segments and one a block up to
+# 8,192, with atomics into global memory above; their grid is a block
+# per 16,384 rows up to one a multiprocessor: both sides of each of those
+# thresholds, query (c)'s 32 bins and query (a)'s 4,096 segments at the
+# main path's 4,194,304 rows
+SEG_CASES = [(1, 1), (1025, 128), (70000, 4096), (70000, 60000),
+             (70000, 32), (70000, 33), (100003, 8192), (100003, 8193),
+             (16384, 4096), (16385, 4096), (4_194_304, 32),
+             (4_194_304, 4096)]
+
+
+@pytest.mark.parametrize("n,n_seg", SEG_CASES)
 @pytest.mark.parametrize("op", OPS)
 @pytest.mark.parametrize("dt", ["int32", "float32"])
 def test_segment_kernel_matches_plain(dev, n, n_seg, op, dt):
@@ -98,7 +110,10 @@ def test_window_kernel_propagates_nan(dev, n, window, slide, op):
 SPECS = [((col(1) % 7) == 3) | ~(col(0) < 0), (col(0) / 3) > 10.5, None]
 
 
-@pytest.mark.parametrize("n,n_seg", [(1, 1), (1025, 128), (70000, 60000)])
+@pytest.mark.parametrize("n,n_seg", [(1, 1), (1025, 128), (70000, 60000),
+                                     (70000, 32), (70000, 33),
+                                     (100003, 8192), (100003, 8193),
+                                     (16385, 4096), (4_194_304, 4096)])
 @pytest.mark.parametrize("op", OPS)
 @pytest.mark.parametrize("spec", range(len(SPECS)))
 def test_fused_kernel_matches_plain(dev, n, n_seg, op, spec):
@@ -119,6 +134,141 @@ def test_fused_kernel_matches_plain(dev, n, n_seg, op, spec):
                                          "sum")
         _close(got[0], want[0], op, abs_sum)
         _close(got[1], want[1], "count")
+
+
+def _fused_sum(ts, ids, n_seg, op, dt, value=None):
+    """B1 over columns ts (slot 0 the predicate's, slot 1 the value's):
+    keep rows with col 0 >= 0, reduce col 1 (or ``value``)."""
+    kinds = tuple((i, "F" if t.dtype == torch.float32 else "I")
+                  for i, t in enumerate(ts))
+    prog = K.compile_specs(json.dumps((col(0) >= 0).to_spec()),
+                           json.dumps((value or col(1)).to_spec()), kinds,
+                           str(dt).split(".")[1])
+    return (K.fused_filter_aggregate_tensor(ts, prog, ids, n_seg, op, dt),
+            K.fused_filter_aggregate_plain(ts, prog, ids, n_seg, op, dt))
+
+
+@pytest.mark.parametrize("n_seg", [1, 32, 33, 4096, 8193])
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_segment_and_fused_kernels_propagate_nan(dev, n_seg, op):
+    """f32 min/max over values with NaNs in some segments: B1 and B2 equal
+    plain amin/amax exactly, NaN where plain has NaN."""
+    ids, ints, v = _data(dev, 70000, n_seg, n_seg)
+    v[torch.rand((70000,), device=dev) < 2.0 / n_seg] = float("nan")
+    got = K.segment_reduce_tensor(v, ids, n_seg, op)
+    want = K.segment_reduce_plain(v, ids, n_seg, op)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    (acc, cnt), (pacc, pcnt) = _fused_sum([ints, v], ids, n_seg, op,
+                                          torch.float32)
+    torch.testing.assert_close(acc, pacc, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(cnt, pcnt)
+
+
+@pytest.mark.parametrize("n_seg", [1, 32, 33, 4096, 8193])
+def test_segment_and_fused_int32_sums_wrap(dev, n_seg):
+    """int32 sums past 2**31 wrap as np.add.at does, on every path."""
+    ids, _, _ = _data(dev, 70000, n_seg, 5)
+    v = torch.full((70000,), 2**30 + 12345, dtype=torch.int32, device=dev)
+    got = K.segment_reduce_tensor(v, ids, n_seg, "sum")
+    assert torch.equal(got, K.segment_reduce_plain(v, ids, n_seg, "sum"))
+    (acc, cnt), (pacc, pcnt) = _fused_sum([v, v], ids, n_seg, "sum",
+                                          torch.int32)
+    assert torch.equal(acc, pacc) and torch.equal(cnt, pcnt)
+
+
+@pytest.mark.parametrize("n_seg", [1, 4096])
+@pytest.mark.parametrize("op", OPS)
+def test_every_row_in_one_segment(dev, n_seg, op):
+    """Worst contention: every row of 1,000,000 folds into segment 7 % n_seg
+    (a thread table or a warp table, all lanes of every step peers)."""
+    n = 1_000_000
+    ids = torch.full((n,), 7 % n_seg, dtype=torch.int32, device=dev)
+    _, ints, floats = _data(dev, n, 1, 11)
+    for v in (ints, floats):
+        got = K.segment_reduce_tensor(v, ids, n_seg, op)
+        want = K.segment_reduce_plain(v, ids, n_seg, op)
+        _close(got, want, op, K.segment_reduce_plain(v.abs(), ids, n_seg,
+                                                     "sum"))
+        dt = v.dtype
+        (acc, cnt), (pacc, pcnt) = _fused_sum([ints, v], ids, n_seg, op, dt)
+        keep = torch.where(ints >= 0, ids, -1)
+        _close(acc, pacc, op, K.segment_reduce_plain(
+            v.abs().to(dt), keep, n_seg, "sum") if dt == torch.float32
+            else None)
+        assert torch.equal(cnt, pcnt)
+
+
+@pytest.mark.parametrize("n_seg", [1, 32])
+def test_f32_sums_are_the_same_bits_every_run(dev, n_seg):
+    """Up to 32 segments B1 and B2 fold in an order fixed by the data
+    alone (a table a thread, a fixed flush, the blocks' partials folded in
+    block order), so an f32 sum repeats bit for bit (ROADMAP C4; above 32
+    segments a block table's atomics add in the order warps arrive)."""
+    ids, ints, v = _data(dev, 4_194_304, n_seg, 17)
+    runs = [K.segment_reduce_tensor(v, ids, n_seg, "sum") for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    fused = [_fused_sum([ints, v], ids, n_seg, "sum", torch.float32)[0][0]
+             for _ in range(3)]
+    assert all(torch.equal(fused[0], r) for r in fused[1:])
+
+
+@pytest.mark.parametrize("n_seg", [32, 4096])
+def test_calls_from_threads_on_one_stream(dev, n_seg):
+    """The query executor calls B1 and B2 from a thread pool on one
+    stream, and a launcher lets go of the interpreter lock between its
+    two launches, so one call's launches can have another call's between
+    them: every call keeps its own partials.  16 threads, each with its
+    own values (so that any two calls whose partials met would show),
+    call the wrappers alone, 50 times each, against results computed
+    once."""
+    from concurrent.futures import ThreadPoolExecutor
+    n_threads, n_calls = 16, 50
+    ids, ints, _ = _data(dev, 300_000, n_seg, 23)
+    prog = K.compile_specs(json.dumps((col(0) >= 0).to_spec()),
+                           json.dumps(col(1).to_spec()),
+                           ((0, "I"), (1, "I")), "int32")
+    vals = [ints + 1000 * t for t in range(n_threads)]
+    want_b1 = [K.fused_filter_aggregate_plain([ints, v], prog, ids, n_seg,
+                                              "sum", torch.int32)
+               for v in vals]
+    want_b2 = [K.segment_reduce_plain(v, ids, n_seg, "sum") for v in vals]
+
+    def calls(t):
+        return [K.fused_filter_aggregate_tensor([ints, vals[t]], prog, ids,
+                                                n_seg, "sum", torch.int32)
+                if (t + i) % 2 else
+                K.segment_reduce_tensor(vals[t], ids, n_seg, "sum")
+                for i in range(n_calls)]
+    with ThreadPoolExecutor(n_threads) as pool:
+        results = list(pool.map(calls, range(n_threads), timeout=300))
+    torch.cuda.synchronize()
+    for t, rs in enumerate(results):
+        for i, r in enumerate(rs):
+            if (t + i) % 2:
+                assert torch.equal(r[0], want_b1[t][0]) and \
+                    torch.equal(r[1], want_b1[t][1]), (t, i)
+            else:
+                assert torch.equal(r, want_b2[t]), (t, i)
+
+
+@pytest.mark.parametrize("kernel", ["segment_reduce", "fused"])
+@pytest.mark.parametrize("delta", [-1, 1])
+def test_scratch_of_the_wrong_size_is_refused(dev, monkeypatch, kernel,
+                                               delta):
+    """A partials scratch of another row count than the launch's grid is
+    refused before any launch, not written past."""
+    from repro_torch import _ext
+    rows = K._scratch_rows
+    monkeypatch.setattr(K, "_scratch_rows",
+                        lambda *a: max(rows(*a) + delta, 0))
+    ids, ints, v = _data(dev, 70000, 4096, 3)
+    _ext.reset_launch_counts()
+    with pytest.raises(_ext.KernelLaunchError):
+        if kernel == "segment_reduce":
+            K.segment_reduce_tensor(v, ids, 4096, "sum")
+        else:
+            _fused_sum([ints, v], ids, 4096, "sum", torch.float32)
+    assert sum(_ext.LAUNCHES.values()) == 0
 
 
 def test_host_api_on_cuda_matches_cpu(dev):
