@@ -35,7 +35,21 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
 4. ``[stream]``: a continuous windowed query over 16,777,216 rows
    pushed by 4 producers; every final window must equal the
    ``use_kernels=False`` batch engine over the same rows.
-5. ``[model-kernels]`` (before the timing): B5 flash attention and B7
+5. ``[cluster]``: a ``repro_torch.cluster.ClusterClovis`` of 4 nodes and
+   2 replicas holding the same 1 GiB table; queries (a)-(d) through
+   ``analytics()`` must be byte-identical to [main]'s, and stay so when
+   the node that is primary for the most partitions is killed after
+   the second shipped fragment of (a) (a reroute in the ADDB route
+   trace, the node evicted, every partition on 2 live nodes).
+   ``[serving]``: a fresh such cluster behind ``serving()``; tenants ops
+   and science (priority 2) submit (a), (b) count and (c) at once, each
+   twice; every response equal to [main]'s, dedup + cache hits above 0,
+   each request's ADDB serving trace complete.  ``[compaction]``: 256
+   deltas of 4,096 rows (64 KiB) appended through ``compaction()`` with
+   the default policy, query (a) through the front door before and
+   after ``compact()``, both equal to numpy over the rows.  B1, B2 and
+   B3 must launch in these phases.
+6. ``[model-kernels]`` (before the timing): B5 flash attention and B7
    the RG-LRU scan against their plain versions at the serving shapes
    and at edge shapes; B7 bit for bit, B5 within ``ATTN_RTOL`` of each
    query row's largest |o|.  ``[serve]``: recurrentgemma-9b at
@@ -56,7 +70,7 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
    (128,983,488 f32 parameters from seed 0) serves 4 prompts of 16,000
    tokens and 32 greedy tokens the same way; its prefill must launch B6
    24 times and B5/B7 never.
-6. One JSON line of per-kernel numbers, then the contract's last line.
+7. One JSON line of per-kernel numbers, then the contract's last line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -94,6 +108,9 @@ HEAT_HIST, HEAT_OBJS = 64, 262_144   # extractor hist_len x tracked objects
 PERCIP_OBJS, PERCIP_BYTES, PERCIP_READS, SCAN_EVERY = 1024, 64 << 10, 2048, 16
 STREAM_ELEMS, STREAM_ROWS, STREAM_PRODUCERS = 4096, 4096, 4
 STREAM_WINDOW_S, STREAM_DELTA = 0.256, 262_144
+CLUSTER_NODES, CLUSTER_REPLICAS = 4, 2
+TENANTS, SERVED = ("ops", "science"), ("a_mean", "b_count", "c_histogram")
+DELTAS, DELTA_ROWS = 256, 4096  # [compaction]: 64 KiB deltas, 16 MiB
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12            # H100 SXM dense TF32 tensor cores
 TF32X3_FLOPS = TF32_FLOPS / 3  # B6 split-TF32 products; a reference only
@@ -1065,25 +1082,37 @@ def phase_heat_split(torch, H, dev):
 # phase 3: the main path at full size
 # ---------------------------------------------------------------------------
 
-def build_store(torch, Clovis, root, dev):
-    cl = Clovis(root, device=dev)
+def table_rows(torch, gen, dev, n, shard):
+    """``n`` rows of the analytics-tour table (key, quality, reading,
+    shard; int32), drawn on the card from ``gen``."""
+    tbl = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    for c, (lo, hi) in enumerate(((0, KEYS), (0, 100), (-500, 500))):
+        tbl[:, c] = torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+    tbl[:, 3] = shard
+    return tbl.cpu().numpy()
+
+
+def fill_store(torch, cl, dev, tag="[store]"):
+    """Write the 1 GiB table into ``cl`` (a Clovis or a ClusterClovis):
+    PARTS partitions of ROWS rows from torch.Generator seed 0."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.perf_counter()
     for i in range(PARTS):
-        tbl = torch.empty((ROWS, 4), dtype=torch.int32, device=dev)
-        for c, (lo, hi) in enumerate(((0, KEYS), (0, 100), (-500, 500))):
-            tbl[:, c] = torch.randint(lo, hi, (ROWS,), generator=gen,
-                                      device=dev, dtype=torch.int32)
-        tbl[:, 3] = i
-        cl.put_array(f"capture/{i:02d}", tbl.cpu().numpy(),
+        cl.put_array(f"capture/{i:02d}", table_rows(torch, gen, dev, ROWS, i),
                      container="capture")
+    wall = time.perf_counter() - t0
     nbytes = sum(cl.store.read_size(o) for o in cl.container("capture"))
-    log(f"[store] {PARTS} partitions x {ROWS} rows x 4 int32 = "
-        f"{nbytes} B written in {time.perf_counter() - t0:.2f} s")
+    log(f"{tag} {PARTS} partitions x {ROWS} rows x 4 int32 = "
+        f"{nbytes} B written in {wall:.2f} s")
     if nbytes != PARTS * ROWS * 16:
-        fail(f"store holds {nbytes} B, expected {PARTS * ROWS * 16}")
+        fail(f"{tag} store holds {nbytes} B, expected {PARTS * ROWS * 16}")
     return cl
+
+
+def build_store(torch, Clovis, root, dev):
+    return fill_store(torch, Clovis(root, device=dev), dev)
 
 
 QUERIES = ("a_mean", "b_count", "b_min", "b_max", "c_histogram",
@@ -1274,7 +1303,7 @@ def phase_main_path(torch, K, col, Clovis, dev):
         percip_query(torch, K, col, cl, engine, results["a_mean"].value)
         for eng in engines:
             eng.close()
-        return launches, per_query
+        return launches, per_query, {n: r.value for n, r in results.items()}
     finally:
         remove_store(root)
 
@@ -1486,6 +1515,269 @@ def phase_stream(torch, K, col, dev):
         return launches
     finally:
         remove_store(root)
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the storage cluster, the serving front door and compaction
+# ---------------------------------------------------------------------------
+
+def remove_cluster(root: Path):
+    """Remove a ClusterClovis root: each node keeps a Clovis stack (and
+    its T1 dirs) under root / node_id."""
+    if root.is_dir():
+        for node_root in root.iterdir():
+            remove_store(node_root)
+    remove_store(root)
+
+
+def build_cluster(torch, root, dev, tag):
+    from repro_torch.cluster import ClusterClovis
+    remove_cluster(root)
+    cl = ClusterClovis(root, nodes=CLUSTER_NODES, replicas=CLUSTER_REPLICAS,
+                       device=dev)
+    fill_store(torch, cl, dev, tag)
+    held = sum(n.store.read_size(o) for n in cl.alive_nodes()
+               for o in cl.container("capture") if n.store.exists(o))
+    log(f"{tag} {CLUSTER_NODES} nodes, {CLUSTER_REPLICAS} replicas: "
+        f"{held} B held on the nodes")
+    if held != CLUSTER_REPLICAS * PARTS * ROWS * 16:
+        fail(f"{tag} nodes hold {held} B, expected "
+             f"{CLUSTER_REPLICAS * PARTS * ROWS * 16}")
+    return cl
+
+
+def phase_cluster(torch, K, col, dev, main_values):
+    """[cluster] queries (a)-(d) through ``ClusterClovis.analytics()``
+    over a 4-node, 2-replica cluster holding the [main] table; each
+    result must be byte-identical to [main]'s.  Then the node that is
+    primary for the most partitions is killed after the second shipped
+    fragment of query (a) (two workers, as the reference's failover
+    test): the result must stay byte-identical, the route trace show a
+    reroute, the node leave the ring and every partition keep 2 live
+    holders."""
+    root = ROOT / ".chip_smoke" / "cluster"
+    try:
+        cl = build_cluster(torch, root, dev, "[cluster]")
+        K.reset_launch_counts()                 # [cluster] starts here
+        for name in QUERIES:
+            eng = cl.analytics(partial_cache_size=0)
+            t0 = time.perf_counter()
+            res = eng.run(queries(eng, col)[name])
+            wall = time.perf_counter() - t0
+            eng.close()
+            if not equal(res.value, main_values[name]):
+                fail(f"[cluster] {name} differs from [main]'s result")
+            log(f"[cluster] {name}: wall {wall:.3f} s (plan "
+                f"{res.stats.plan_s:.3f} exec {res.stats.exec_s:.3f} "
+                f"merge {res.stats.merge_s:.3f}); byte-identical to [main]")
+        log(f"[cluster] fragment time by node over (a)-(d) (ADDB route "
+            f"trace, host clock): {json.dumps(node_fragment_ms(cl))}")
+
+        primaries = {}
+        for oid in cl.container("capture"):
+            p = cl.primary_of(oid)
+            primaries[p] = primaries.get(p, 0) + 1
+        victim = max(sorted(primaries), key=primaries.get)
+        evictions = []
+        evict = cl.evict_node
+
+        def timed_evict(node_id):
+            t0 = time.perf_counter()
+            out = evict(node_id)
+            evictions.append((time.perf_counter() - t0, out))
+            return out
+        cl.evict_node = timed_evict              # the HA handler calls it
+        ships = [0]
+
+        def killer(_res):
+            ships[0] += 1
+            if ships[0] == 2:
+                cl.kill_node(victim)
+        n_routes = len(cl.addb.route_trace())
+        cl.shipper.add_observer(killer)
+        eng = cl.analytics(partial_cache_size=0, max_workers=2)
+        t0 = time.perf_counter()
+        res = eng.run(queries(eng, col)["a_mean"])
+        wall = time.perf_counter() - t0
+        cl.shipper.remove_observer(killer)
+        eng.close()
+        launches = {k: K.LAUNCHES[k] for k in BATCH_KERNELS}  # ends here
+        routes = cl.addb.route_trace()[n_routes:]
+        reroutes = sum(1 for t in routes if t["rerouted"])
+        if not equal(res.value, main_values["a_mean"]):
+            fail("[cluster] a_mean with a node killed mid-scan differs from "
+                 "the healthy result")
+        if not reroutes:
+            fail("[cluster] no fragment was rerouted after the kill")
+        if victim in cl.ring or not evictions:
+            fail(f"[cluster] {victim} was not evicted from the ring")
+        holders = {o: len(cl.live_holders(o)) for o in cl.container("capture")}
+        if set(holders.values()) != {CLUSTER_REPLICAS}:
+            fail(f"[cluster] live holders after the eviction: {holders}")
+        evict_s, summary = evictions[0]
+        log(f"[cluster] failover: {victim} (primary of "
+            f"{primaries[victim]} of {PARTS} partitions) killed after the "
+            f"2nd shipped fragment of a_mean; wall {wall:.3f} s, "
+            f"{reroutes} of {len(routes)} routes rerouted; eviction and "
+            f"re-replication {evict_s:.3f} s ({summary['partitions']} "
+            f"partitions, {summary['bytes']} B); byte-identical to the "
+            f"healthy run, every partition on {CLUSTER_REPLICAS} live nodes")
+        for k in BATCH_KERNELS:
+            if launches[k] <= 0:
+                fail(f"[cluster] kernel {k} was not launched")
+        cl.close()
+        return launches
+    finally:
+        remove_cluster(root)
+
+
+def node_fragment_ms(cl):
+    """Per node: fragments served and their mean and largest wall ms, from
+    the cluster's ADDB route trace."""
+    by_node = {}
+    for t in cl.addb.route_trace():
+        if t["ok"]:
+            by_node.setdefault(t["node"], []).append(t["latency_s"] * 1e3)
+    return {n: [len(v), round(sum(v) / len(v), 3), round(max(v), 3)]
+            for n, v in sorted(by_node.items())}
+
+
+def query_a_numpy(rows):
+    """Query (a) over ``rows`` in numpy: filter quality >= 75, group by
+    key, mean reading (exact sums: every partial is an integer < 2**24)."""
+    import numpy as np
+    keep = rows[:, 1] >= 75
+    keys = rows[keep, 0].astype(np.int64)
+    counts = np.bincount(keys, minlength=KEYS)
+    sums = np.bincount(keys, weights=rows[keep, 2].astype(np.float64),
+                       minlength=KEYS)
+    live = np.flatnonzero(counts)
+    return live.astype(np.int64), sums[live] / counts[live]
+
+
+def phase_serving(torch, K, col, dev, main_values):
+    """[serving] ``ClusterClovis.serving()`` over a fresh 4-node cluster
+    holding the [main] table: tenants ops and science (priority 2)
+    submit queries (a), (b) count and (c) at once, each twice; every
+    response must be ok and equal [main]'s, single-flight or the
+    partial cache must have shared work, and the ADDB serving trace hold
+    each request's stages.  Then [compaction] on the same cluster."""
+    from repro_torch.serving import QueryRequest, TenantConfig
+    root = ROOT / ".chip_smoke" / "serving"
+    try:
+        cl = build_cluster(torch, root, dev, "[serving]")
+        svc = cl.serving([TenantConfig("ops"),
+                          TenantConfig("science", priority=2.0)], workers=4)
+        specs = {n: QueryRequest.from_dataset(
+                     "ops", queries(svc.engine, col)[n]).ops
+                 for n in SERVED}
+        K.reset_launch_counts()                 # [serving] starts here
+        t0 = time.perf_counter()
+        subs = [(t, n, svc.submit(QueryRequest(t, "capture", specs[n],
+                                               tag=f"{t}/{n}/{rep}")))
+                for rep in range(2) for t in TENANTS for n in SERVED]
+        resps = [(t, n, sub.tag, sub.result(timeout=1200))
+                 for t, n, sub in subs]
+        wall = time.perf_counter() - t0
+        launches = {k: K.LAUNCHES[k] for k in BATCH_KERNELS}  # ends here
+        shared = 0
+        for t, n, tag, r in resps:
+            if not r.ok:
+                fail(f"[serving] {tag} failed: {r.error}")
+            if not equal(r.value, main_values[n]):
+                fail(f"[serving] {tag} differs from [main]'s result")
+            shared += r.stats.dedup_hits + r.stats.cache_hits
+            stages = {s["stage"] for s in svc.addb.serving_trace(tag)}
+            if not {"admit", "queue", "plan", "execute"} <= stages:
+                fail(f"[serving] {tag}: serving trace holds {sorted(stages)}")
+        if shared <= 0:
+            fail("[serving] no fragment was shared (dedup + cache hits 0)")
+        for k in ("fused_filter_aggregate", "segment_reduce"):
+            if launches[k] <= 0:
+                fail(f"[serving] kernel {k} was not launched")
+        for t in TENANTS:
+            mine = [r.trace for tt, _, _, r in resps if tt == t]
+            p50 = {k: sorted(tr[k] for tr in mine)[len(mine) // 2]
+                   for k in ("total_s", "queue_s", "plan_s", "execute_s",
+                             "merge_s")}
+            log(f"[serving] tenant {t}: {len(mine)} requests, latency p50 "
+                f"{p50['total_s']:.3f} s, max "
+                f"{max(tr['total_s'] for tr in mine):.3f} s; p50 by stage "
+                f"(s): queue {p50['queue_s']:.3f}, plan {p50['plan_s']:.3f}, "
+                f"execute {p50['execute_s']:.3f}, merge {p50['merge_s']:.3f}")
+        log(f"[serving] {len(resps)} requests in {wall:.3f} s, every one "
+            f"equal to [main]'s; dedup + cache hits {shared}; "
+            f"{json.dumps(svc.stats()['flights'])}")
+        comp = phase_compaction(torch, K, cl, svc, dev, specs["a_mean"])
+        svc.close()
+        cl.close()
+        return {"serving": launches, "compaction": comp}
+    finally:
+        remove_cluster(root)
+
+
+def phase_compaction(torch, K, cl, svc, dev, spec_a):
+    """[compaction] ``cluster.compaction()`` with the default policy:
+    DELTAS deltas of DELTA_ROWS rows (64 KiB each) appended to container
+    cevents, query (a) through the serving engine before and after
+    ``compact()``; both must equal numpy over the appended rows, the
+    pinned snapshot version must advance, and the deltas must merge into
+    blocks of at most the policy's group size."""
+    import numpy as np
+    from repro_torch.serving import QueryRequest
+    comp = cl.compaction()
+    pol = comp.compactor.policy
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rows = table_rows(torch, gen, dev, DELTAS * DELTA_ROWS, 0)
+    rows[:, 3] = np.arange(len(rows)) // DELTA_ROWS
+    want = query_a_numpy(rows)
+    K.reset_launch_counts()                     # [compaction] starts here
+    t0 = time.perf_counter()
+    for i in range(DELTAS):
+        comp.append_rows("cevents", rows[i * DELTA_ROWS:(i + 1) * DELTA_ROWS])
+    append_s = time.perf_counter() - t0
+    req = QueryRequest("ops", "cevents", spec_a, tag="cevents/before")
+    before = svc.query(req, timeout=1200)
+    t0 = time.perf_counter()
+    report = comp.compact("cevents")["cevents"]
+    compact_s = time.perf_counter() - t0
+    after = svc.query(QueryRequest("ops", "cevents", spec_a,
+                                   tag="cevents/after"), timeout=1200)
+    launches = {k: K.LAUNCHES[k] for k in BATCH_KERNELS}   # ends here
+    for r in (before, after):
+        if not r.ok or not equal(r.value, want):
+            fail(f"[compaction] query a on cevents ({r.tag}) differs from "
+                 f"numpy over the appended rows: {r.error}")
+    v0, v1 = before.stats.snapshot_version, after.stats.snapshot_version
+    if not v1 > v0 >= DELTAS:
+        fail(f"[compaction] snapshot version {v0} -> {v1}")
+    # groups of up to min(max_group, target / delta) deltas; a last run
+    # shorter than min_group stays as it is
+    per_group = min(pol.max_group, pol.target_bytes // (DELTA_ROWS * 16))
+    full, rest = divmod(DELTAS, per_group)
+    merged = full + (rest >= pol.min_group)
+    left = 0 if rest >= pol.min_group else rest
+    blocks = comp.manifest("cevents").snapshot().entries
+    if (report.blocks_in != DELTAS - left or report.blocks_out != merged
+            or len(blocks) != merged + left
+            or sum(e.rows for e in blocks) != len(rows)):
+        fail(f"[compaction] {report.blocks_in} deltas into "
+             f"{report.blocks_out} blocks, manifest {len(blocks)}; "
+             f"expected {DELTAS - left} into {merged}, {left} left")
+    if launches["fused_filter_aggregate"] <= 0:
+        fail("[compaction] fused_filter_aggregate was not launched")
+    log(f"[compaction] {DELTAS} deltas x {DELTA_ROWS} rows x 4 int32 "
+        f"({rows.nbytes} B) appended in {append_s:.3f} s = "
+        f"{DELTAS / append_s:.1f} appends/s, {rows.nbytes / append_s:.1f} "
+        f"B/s; compact {compact_s:.3f} s into {report.blocks_out} blocks of "
+        f"{sorted({e.nbytes for e in blocks})} B (policy: max_group "
+        f"{pol.max_group}, target {pol.target_bytes} B); query a before "
+        f"{before.trace['total_s']:.3f} s ({before.stats.partitions} "
+        f"partitions, snapshot {v0}), after {after.trace['total_s']:.3f} s "
+        f"({after.stats.partitions}, snapshot {v1}); both equal numpy")
+    comp.close()
+    return launches
 
 
 def kernel_event_times(torch, run):
@@ -1715,7 +2007,8 @@ def main() -> int:
     phase_model_kernels(torch, KA, KR, KS, chk, dev)
     timing = phase_timing(torch, K, H, KA, KR, KS, col, dev)
     phase_heat_split(torch, H, dev)
-    launches, per_query = phase_main_path(torch, K, col, Clovis, dev)
+    launches, per_query, main_values = phase_main_path(torch, K, col,
+                                                       Clovis, dev)
     phase_percip_store(torch, H, K, dev)
     # [percip] ends here: heat_scan launches of both percipience phases
     launches["heat_scan"] = K.LAUNCHES["heat_scan"]
@@ -1724,6 +2017,8 @@ def main() -> int:
     if launches["heat_scan"] <= 0:
         fail("heat_scan was not launched on the percipience path")
     stream = phase_stream(torch, K, col, dev)
+    cluster = phase_cluster(torch, K, col, dev, main_values)
+    served = phase_serving(torch, K, col, dev, main_values)
     launches.update(phase_serve(
         torch, _ext, get_config(SERVE_ARCH).scaled(dtype="float32"), dev))
     launches.update(phase_serve(
@@ -1749,6 +2044,9 @@ def main() -> int:
                                     per_query[q]["fused_filter_aggregate"]]
                                 for q, r in b1.items()}))
     log(f"[stream] launches: {json.dumps(stream)}")
+    log(f"[cluster] launches: {json.dumps(cluster)}")
+    log(f"[serving] launches: {json.dumps(served['serving'])}; "
+        f"[compaction] launches: {json.dumps(served['compaction'])}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)                          # nvidia-smi's "name, power.limit"
     print(json.dumps({"kernels": rows}))

@@ -5,15 +5,15 @@ Layers, bottom-up (paper Fig. 2):
   object_store   — Mero analogue (blocks, containers, layouts, versions)
   transactions   — DTM: crash-atomic update groups (WAL + versioning)
   clovis         — access/index/management API on top of the store
+  ha             — failure-event digestion + automated repair
   hsm            — usage-driven tier migration + RTHMS placement
   function_shipping — in-storage compute executors (torch builtins)
   storage_window — PGAS I/O (MPI storage windows analogue)
   streams        — MPIStream analogue (I/O offload)
-  addb           — telemetry
+  addb / fdmi    — telemetry and plugin bus
 
 These modules are copies of ``repro.core``'s (imports rewritten, on-disk
-formats unchanged), so the port opens a store the reference wrote.  HA
-and FDMI plugins wait for later slices.
+formats unchanged), so the port opens a store the reference wrote.
 
 One layer lives above this package: repro_torch.percipience closes the
 telemetry→prediction→action loop (heat scoring on the card, prefetch,
@@ -26,6 +26,7 @@ from repro_torch.core.clovis import (Clovis, ClovisIndex,  # noqa: F401
                                      open_reference_store)
 from repro_torch.core.function_shipping import (FunctionShipper,  # noqa: F401
                                                 PartialAgg, ShipResult)
+from repro_torch.core.ha import FailureEvent, HAMonitor  # noqa: F401
 from repro_torch.core.hsm import (CountingScorer, HsmDaemon,  # noqa: F401
                                   HsmPolicy, recommend_tier)
 from repro_torch.core.layouts import Layout, DEFAULT_LAYOUTS  # noqa: F401

@@ -15,10 +15,10 @@ for byte, so this port opens a store root ``repro`` wrote
 (``open_reference_store`` checks that it reads the same arrays).
 
 The stack carries a ``device`` (``cuda`` unless the caller asks for the
-CPU); the analytics engines it builds and the percipience loop
-(``enable_percipience``) run their kernels there.  Manifests, compaction
-and serving wait for later slices of the port: without them the engine
-behaves as on an unmanaged store.
+CPU); the analytics engines it builds, the serving front door over them
+(``serving``) and the percipience loop (``enable_percipience``) run their
+kernels there.  Containers written through ``compaction()`` are
+manifest-managed, and queries pin their snapshots (``manifests``).
 """
 from __future__ import annotations
 
@@ -160,6 +160,7 @@ class Clovis:
         self._indices: Dict[str, ClovisIndex] = {}
         self.percipience = None   # set by enable_percipience
         self._stats_catalog = None   # shared by analytics() engines
+        self._manifests = None    # shared ManifestRegistry (see manifests)
         self._lock = threading.RLock()
 
     # ---- access interface: objects ----
@@ -346,6 +347,40 @@ class Clovis:
             kw["stats"] = self._stats_catalog
         cls = engine_cls or AnalyticsEngine
         return cls(self, **kw)
+
+    @property
+    def manifests(self) -> "ManifestRegistry":
+        """The shared per-container manifest registry — queries consult
+        it to pin snapshots; the compaction service commits through it
+        (lazy: unmanaged stacks never build one until asked)."""
+        from repro_torch.compaction import ManifestRegistry
+        with self._lock:
+            if self._manifests is None:
+                self._manifests = ManifestRegistry(self)
+            return self._manifests
+
+    def compaction(self, **kw) -> "CompactionService":
+        """Entry point to log-structured compaction + manifest
+        snapshots (see repro_torch.compaction and docs/compaction.md):
+        ``append_rows`` publishes immutable delta blocks behind
+        versioned manifests, a background compactor merges small runs
+        into RTHMS-placed blocks, and queries pin snapshot versions.
+        Keywords pass through to CompactionService (``policy``,
+        ``catalog``, ``auto_recover``)."""
+        from repro_torch.compaction import CompactionService
+        kw.setdefault("catalog", self._stats_catalog)
+        return CompactionService(self, **kw)
+
+    def serving(self, tenants=(), **kw) -> "QueryService":
+        """Entry point to the multi-tenant query serving front door —
+        admission-controlled, weighted-fair, fragment-deduplicating
+        query service over this store, its kernels on this stack's
+        device (see repro_torch.serving and docs/serving.md).
+        ``tenants`` is an iterable of TenantConfig; keywords pass
+        through to QueryService (``workers``, ``quantum_bytes``, plus
+        engine options)."""
+        from repro_torch.serving import QueryService
+        return QueryService(self, tenants, **kw)
 
 
 def _dtype_name(dt) -> str:

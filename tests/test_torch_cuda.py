@@ -287,6 +287,35 @@ def test_host_api_on_cuda_matches_cpu(dev):
         K.histogram_ref(v, 32, (-500, 500)))
 
 
+def test_cluster_query_on_cuda_matches_cpu(dev, tmp_path):
+    """Query (a) over a 3-node, 2-replica cluster on the card equals the
+    same cluster on the CPU byte for byte, and launches B1."""
+    from repro_torch.cluster import ClusterClovis
+    rng = np.random.default_rng(0)
+    tables = [np.stack([rng.integers(0, 64, 20000),
+                        rng.integers(0, 100, 20000),
+                        rng.integers(-500, 500, 20000),
+                        np.full(20000, i)], axis=1).astype(np.int32)
+              for i in range(6)]
+    values, launched = [], []
+    for where in (dev, torch.device("cpu")):
+        cl = ClusterClovis(tmp_path / where.type, nodes=3, replicas=2,
+                           device=where)
+        for i, t in enumerate(tables):
+            cl.put_array(f"capture/{i}", t, container="capture")
+        eng = cl.analytics(partial_cache_size=0)
+        before = K.LAUNCHES["fused_filter_aggregate"]
+        values.append(eng.run(eng.scan("capture").filter(col(1) >= 75)
+                              .key_by(col(0)).aggregate(
+                                  "mean", value=col(2))).value)
+        launched.append(K.LAUNCHES["fused_filter_aggregate"] - before)
+        eng.close()
+        cl.close()
+    assert launched[0] > 0 and launched[1] == 0
+    for got, want in zip(*values):
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+
+
 # ---------------------------------------------------------------------------
 # heat scan (B4): built with --fmad=false, so kernel == plain bit for bit
 # ---------------------------------------------------------------------------
