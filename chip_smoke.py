@@ -70,13 +70,36 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
    (128,983,488 f32 parameters from seed 0) serves 4 prompts of 16,000
    tokens and 32 greedy tokens the same way; its prefill must launch B6
    24 times and B5/B7 never.
-7. One JSON line of per-kernel numbers, then the contract's last line.
+7. ``[edge]``: ``benchmarks/bench_edge.py``'s hostile schedule (seed
+   2026, 4 producers, 1,200 events, 3 crashes: duplicates, reordering,
+   poison, a torn tail) through the port's ``EdgeIngestor`` into a
+   continuous ``EventWindow`` sum on the card, with ``tests/chaos.py``'s
+   harness loaded over ``repro_torch.edge``; streaming windows plus late
+   adjustments must equal the batch query and the schedule's sums, the
+   dead letters the poison injected; B2 must launch.
+8. ``[train]``: mamba2-130m at full width and depth in f32 (seed 0)
+   trained through ``repro_torch.launch.train.Trainer`` on 8 x 2,048
+   tokens a step from a corpus in Clovis, B6 in every forward pass
+   (24 launches a step) with its gradient recomputed from the plain
+   ``ssd_chunked``.  One gradient against the ``use_kernels=False``
+   path first (each leaf within ``TRAIN_GRAD_RTOL`` of its largest
+   |g|); steps 1-20 with stream checkpoints; a T1 device killed and
+   repaired by HA; a new Trainer restores step 20 bit for bit against a
+   host snapshot and trains steps 21-40; the loss must fall.  Then one
+   checkpoint of the whole state (params, m, v) with each of the
+   collective, window and stream strategies, each restored bit for bit,
+   and three steps timed with CUDA events (forward, backward,
+   optimizer); last, B6 at the train shape held against ``ssd_chunked``
+   on the same inputs (y and final state within ``SSD_RTOL`` of each
+   (batch, head)'s largest |value|) and timed.
+9. One JSON line of per-kernel numbers, then the contract's last line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
 from __future__ import annotations
 
 import hashlib
+import importlib.util
 import json
 import re
 import shutil
@@ -124,6 +147,14 @@ SSD_RTOL = 1e-4                # B6 vs plain, of the (batch, head)'s max |value|
 SSD_SEQ_RTOL = 1e-3            # B6 vs the sequential oracle (step-by-step
                                # decays against exponentiated cumsums)
 PROFILE_STEPS = 2              # decode steps traced after the comparison
+# [edge]: benchmarks/bench_edge.py's schedule and windows
+EDGE_SEED, EDGE_PRODUCERS, EDGE_EVENTS, EDGE_CRASHES = 2026, 4, 1200, 3
+EDGE_WINDOW_S, EDGE_REORDER_S, EDGE_LATENESS_S = 1.0, 0.4, 0.5
+# [train]: mamba2-130m, 8 x 2,048 tokens a step, 20 steps, a restart, 20
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = SSM_ARCH, 8, 2048
+TRAIN_STEPS, TRAIN_RESTART, TRAIN_TIMED_STEPS = 40, 20, 3
+TRAIN_GRAD_RTOL = 1e-3         # kernel vs plain gradient, of the leaf's max |g|
+TRAIN_LOSS_RTOL = 1e-5         # kernel vs plain loss, relative
 HOST_COVER_CYCLES = 2_000_000  # ~1 ms of card spin ahead of each timed call
 # (b, h, kv, sq, sk, hd, causal, window, softcap); the first is the
 # serving shape of recurrentgemma-9b's local-attention layers
@@ -1863,6 +1894,7 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
     from repro_torch.launch.serve import Server
     from repro_torch.models import model as mdl
     from repro_torch.models.transformer import stack_kinds
+    from repro_torch.tree import leaves
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32,
             torch.get_float32_matmul_precision())
@@ -1890,7 +1922,7 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
         srv = Server(cfg, root, device=dev, max_len=max_len)
         torch.cuda.synchronize(dev)
         init_s = time.perf_counter() - t0
-        held = sum(t.numel() for t in mdl.leaves(srv.params))
+        held = sum(t.numel() for t in leaves(srv.params))
         if held != n_params:
             fail(f"[{tag}] the server holds {held} parameters, not "
                  f"{n_params}")
@@ -1982,6 +2014,428 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
         remove_store(root)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: edge ingest under chaos into a continuous query on the card
+# ---------------------------------------------------------------------------
+
+def load_chaos():
+    """``tests/chaos.py``'s harness as a private module over the port's
+    edge package (its ``repro.edge`` imports rewritten in memory)."""
+    path = ROOT / "tests" / "chaos.py"
+    src = path.read_text().replace("from repro.edge", "from repro_torch.edge")
+    spec = importlib.util.spec_from_file_location("chip_smoke_chaos", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod          # dataclasses look their module up
+    exec(compile(src, str(path), "exec"), mod.__dict__)
+    return mod
+
+
+def phase_edge(torch, K, col, dev, smi):
+    """[edge] the hostile schedule of benchmarks/bench_edge.py through
+    EdgeBuffer -> EdgeIngestor -> StreamContext -> a continuous
+    EventWindow sum keyed by (producer, window) on the card.  Returns the
+    batch kernels' launches while the schedule ran."""
+    from repro_torch.analytics import EventWindow
+    from repro_torch.core import Addb, Clovis, StreamContext, StreamTap
+    chaos = load_chaos()
+    root = ROOT / ".chip_smoke" / "edge"
+    remove_store(root)
+    try:
+        cl = Clovis(root, addb=Addb(), device=dev)
+        eng = cl.analytics()
+        tap = StreamTap()
+        ctx = StreamContext(n_producers=EDGE_PRODUCERS, attach=tap)
+        ds = eng.from_stream(ctx).key_by(col(0)).aggregate("sum",
+                                                           value=col(1))
+        harness = chaos.ChaosHarness(ctx, root / "buffers", EDGE_PRODUCERS,
+                                     window_s=EDGE_WINDOW_S,
+                                     segment_bytes=4096, addb=cl.addb)
+        actions = chaos.make_schedule(
+            EDGE_SEED, producers=EDGE_PRODUCERS, n_events=EDGE_EVENTS,
+            window_s=EDGE_WINDOW_S, reorder_s=EDGE_REORDER_S,
+            n_crashes=EDGE_CRASHES)
+        K.reset_launch_counts()                 # [edge] starts here
+        t0 = time.perf_counter()
+        cq = eng.run_continuous(
+            ds, EventWindow(EDGE_WINDOW_S, allowed_lateness_s=EDGE_LATENESS_S),
+            delta_rows=64)
+        harness.run(actions)
+        recovery = harness.final_recovery()
+        closed = ctx.close()
+        results = cq.close()
+        wall = time.perf_counter() - t0
+        launches = {k: K.LAUNCHES[k] for k in BATCH_KERNELS}  # ends here
+        st = harness.stats
+        if not closed:
+            fail("[edge] the stream did not drain")
+        if st["crashes"] < 1 or st["torn_crashes"] < 1 or \
+                st["duplicates_injected"] < 1 or st["poison_injected"] < 1:
+            fail(f"[edge] the schedule was too tame: {st}")
+        if launches["segment_reduce"] <= 0:
+            fail("[edge] segment_reduce was not launched")
+        streaming = {}
+        for r in results:
+            if r.value is not None:
+                for k, v in zip(*r.value):
+                    streaming[int(k)] = streaming.get(int(k), 0) + int(v)
+        late = {}
+        for le in cq.late:
+            if not le.assigned:
+                k, v = int(le.payload[0]), int(le.payload[1])
+                late[k] = late.get(k, 0) + v
+        keys, vals = (eng.from_stream(tap).key_by(col(0))
+                      .aggregate("sum", value=col(1)).collect())
+        batch = {int(k): int(v) for k, v in zip(keys, vals)}
+        combined = dict(streaming)
+        for k, v in late.items():
+            combined[k] = combined.get(k, 0) + v
+        if combined != batch:
+            bad = [k for k in set(combined) | set(batch)
+                   if combined.get(k) != batch.get(k)]
+            fail(f"[edge] streaming windows + late adjustments differ from "
+                 f"the batch query at {len(bad)} keys")
+        if batch != harness.expected:
+            fail("[edge] the batch query lost or doubled events against "
+                 "the schedule's sums")
+        if chaos.TORN_SENTINEL in set(batch.values()):
+            fail("[edge] a torn record reached the aggregates")
+        if harness.dlq.published != st["poison_injected"]:
+            fail(f"[edge] {harness.dlq.published} dead letters for "
+                 f"{st['poison_injected']} poison events")
+        if st["buf_torn_tail_recovered"] < 1:
+            fail("[edge] no torn tail was recovered")
+        cst = cq.stats
+        if cst["open_windows"] or cst["buffered_rows"]:
+            fail(f"[edge] the operator did not drain: {cst}")
+        replays = st["replays"] + EDGE_PRODUCERS
+        log(f"[edge] {st['emitted']} events ({len(actions)} actions) from "
+            f"{EDGE_PRODUCERS} producers in {wall:.3f} s = "
+            f"{st['emitted'] / wall:.1f} events/s; {st['crashes']} crashes "
+            f"({st['torn_crashes']} torn, {st['buf_torn_tail_recovered']} "
+            f"torn tails recovered), {replays} replays (applied "
+            f"{recovery['applied'] + st['replay_applied']} lost events), "
+            f"{st['duplicates_injected']} duplicates injected and "
+            f"{st['ingest_duplicates']} absorbed, {st['poison_injected']} "
+            f"poison = {harness.dlq.published} dead letters; "
+            f"{len(batch)} window keys, streaming + {len(late)} late "
+            f"adjustments == batch == the schedule's sums (int64); "
+            f"launches {json.dumps(launches)}; {smi}")
+        eng.close()
+        return launches
+    finally:
+        remove_store(root)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training with checkpoint/restart through Clovis
+# ---------------------------------------------------------------------------
+
+def host_snapshot(torch, state):
+    """{leaf name: a host copy} of a training state."""
+    from repro_torch.tree import flatten_with_names
+    return {n: t.detach().to("cpu", copy=True)
+            for n, t in flatten_with_names(state)}
+
+
+def same_bits(torch, tag, got, want):
+    """Fail unless every leaf of ``got`` has the dtype, shape and bytes of
+    ``want``'s leaf of the same name (a ``host_snapshot``)."""
+    from repro_torch.tree import flatten_with_names
+
+    def raw(t):
+        return t.detach().cpu().reshape(-1).view(torch.uint8)
+    flat = flatten_with_names(got)
+    if sorted(n for n, _ in flat) != sorted(want):
+        fail(f"[train] {tag}: leaf names differ")
+    for n, t in flat:
+        w = want[n]
+        if t.dtype != w.dtype or t.shape != w.shape or not torch.equal(
+                raw(t), raw(w)):
+            fail(f"[train] {tag}: leaf {n} differs")
+
+
+def b6_train_ms(torch, KS, dev, cfg, reps=5):
+    """B6 at the train shape: its y and final state held against
+    ``ssd_chunked`` on the same inputs within SSD_RTOL of each (batch,
+    head)'s largest |value| (fails on a miss), one launch's device time,
+    and one layer's backward (``ssd_chunked`` recomputed and
+    differentiated, as ``kernels.grad`` does) timed with CUDA events.
+    Returns (ms, backward ms, the worst error / (batch, head) max)."""
+    from repro_torch.models import ssm as MS
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    h, p, n = MS.n_ssm_heads(cfg), cfg.ssm_headdim, cfg.ssm_state
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    x = torch.randn((b, s, h, p), generator=g, device=dev)
+    dt = torch.rand((b, s, h), generator=g, device=dev) * 0.1
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    B, C = (torch.randn((b, s, cfg.ssm_ngroups, n), generator=g,
+                        device=dev) * 0.3 for _ in range(2))
+    got = KS.ssd_scan(x, dt, a_log, B, C, chunk=cfg.ssm_chunk)
+    want = KS.ssd_chunked(x, dt, a_log, B, C, cfg.ssm_chunk)
+    worst = 0.0
+    for part, dims, o, w in (("y", (1, 3), got[0], want[0]),
+                             ("final state", (2, 3), got[1], want[1])):
+        if o.shape != w.shape or not bool(torch.isfinite(o).all()):
+            fail(f"[train] B6's {part} at the train shape is of shape "
+                 f"{tuple(o.shape)} or non-finite")
+        err, rel = ssd_error(o, w, dims)
+        worst = max(worst, rel)
+        if not rel <= SSD_RTOL:
+            fail(f"[train] B6's {part} at the train shape differs from "
+                 f"ssd_chunked by {rel:.3e} of the (batch, head)'s max "
+                 f"(limit {SSD_RTOL}; max abs error {err})")
+    del got, want
+    fwd = device_ms(torch, lambda: KS.ssd_scan(x, dt, a_log, B, C,
+                                               chunk=cfg.ssm_chunk))
+    ins = [t.clone().requires_grad_(True) for t in (x, dt, a_log, B, C)]
+    gy = torch.randn((b, s, h, p), generator=g, device=dev)
+    total = 0.0
+    for _ in range(reps):
+        y, _ = KS.ssd_scan(*ins, chunk=cfg.ssm_chunk)
+        s_ev, e_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s_ev.record()
+        torch.autograd.grad(y, ins, gy)
+        e_ev.record()
+        e_ev.synchronize()
+        total += s_ev.elapsed_time(e_ev)
+    return fwd, total / reps, worst
+
+
+def phase_train(torch, ext, KS, dev, smi):
+    """[train] mamba2-130m at full width trained through the port's
+    Trainer with checkpoint/restart through Clovis (see the module's
+    docstring).  Returns B6's launches over the training steps."""
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import TokenLoader, build_synthetic_corpus
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import model as mdl
+    from repro_torch.optim import adamw_update
+    from repro_torch.tree import leaves, unflatten
+    cfg = get_config(TRAIN_ARCH).scaled(dtype="float32")
+    run = RunConfig(arch=TRAIN_ARCH, remat="none", total_steps=TRAIN_STEPS,
+                    warmup_steps=4, checkpoint_every=10,
+                    checkpoint_strategy="stream")
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    n_layers = cfg.n_layers
+    root = ROOT / ".chip_smoke" / "train"
+    remove_store(root)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = Trainer(cfg, run, root, device=dev)
+        t0 = time.perf_counter()
+        n_tok = build_synthetic_corpus(tr.clovis, vocab=cfg.vocab_real,
+                                       n_shards=4,
+                                       tokens_per_shard=b * (s + 1) * 8)
+        corpus_s = time.perf_counter() - t0
+        params, opt = tr.init_state(run.seed)
+        n_params = sum(t.numel() for t in leaves(params))
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in leaves((params, opt)))
+        if n_params != SSM_PARAMS:
+            fail(f"[train] {n_params} parameters, expected {SSM_PARAMS}")
+        log(f"[train] {cfg.name}: {n_params} f32 parameters, state "
+            f"(params, m, v, step) {state_bytes} B; corpus {n_tok} tokens "
+            f"in 4 shards written to Clovis in {corpus_s:.3f} s; batch "
+            f"{b} x {s} tokens a step")
+
+        # 1. one gradient, kernel path against the plain path
+        loader = TokenLoader(tr.clovis, batch=b, seq=s, start_step=10_000)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(loader).items()}
+        loader.close()
+        flat = leaves(params)
+        for t in flat:
+            t.requires_grad_(True)
+        got, peaks = {}, {}
+        for use in (True, False):
+            ext.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            # the plain path recomputes each block in its backward: its
+            # ssd_chunked graphs for 24 layers at once would fill the card
+            loss, _ = mdl.loss_fn(params, batch, cfg, use_kernels=use,
+                                  remat="none" if use else "full")
+            got[use] = (loss.item(), torch.autograd.grad(loss, flat))
+            peaks[use] = torch.cuda.max_memory_allocated(dev)
+            if ext.LAUNCHES["ssd_scan"] != (n_layers if use else 0):
+                fail(f"[train] the gradient with use_kernels={use} "
+                     f"launched B6 {ext.LAUNCHES['ssd_scan']} times")
+        (lk, gk), (lp, gp) = got[True], got[False]
+        worst = max(float((k - q).abs().max()) / float(q.abs().max())
+                    for k, q in zip(gk, gp))
+        if not abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp):
+            fail(f"[train] kernel loss {lk} vs plain {lp}")
+        if not worst <= TRAIN_GRAD_RTOL:
+            fail(f"[train] kernel and plain gradients differ by {worst:.3e} "
+                 f"of a leaf's largest |g| (limit {TRAIN_GRAD_RTOL})")
+        log(f"[train] gradient check on one batch: loss kernel {lk:.7f} "
+            f"plain {lp:.7f} (rel {abs(lk - lp) / abs(lp):.3e}, limit "
+            f"{TRAIN_LOSS_RTOL}); max |g_kernel - g_plain| / max |g_plain| "
+            f"over {len(gk)} leaves {worst:.3e} (limit {TRAIN_GRAD_RTOL}); "
+            f"peak card memory kernel path {peaks[True]} B, plain path "
+            f"(remat full) {peaks[False]} B")
+        del got, gk, gp, batch
+
+        # 2. steps 1-20, stream checkpoints at 10 and 20
+        loader = TokenLoader(tr.clovis, batch=b, seq=s)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ext.reset_launch_counts()               # the train path starts here
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt, hist = tr.train(TRAIN_RESTART, loader, params=params,
+                                     opt_state=opt, log_every=1)
+        torch.cuda.synchronize(dev)
+        wall1 = time.perf_counter() - t0
+        launches = ext.LAUNCHES["ssd_scan"]     # ends here
+        loader.close()
+        tr.ckpt.close()
+        if launches != n_layers * TRAIN_RESTART:
+            fail(f"[train] steps 1-{TRAIN_RESTART} launched B6 {launches} "
+                 f"times, expected {n_layers} a step")
+        saved = host_snapshot(torch, {"params": params, "opt": opt})
+        ckpt1 = [(i.step, i.strategy, round(i.seconds, 3))
+                 for i in tr.ckpt.history]
+
+        # 3. a T1 device dies; HA repairs what it held
+        dev0 = tr.clovis.pools["t1_nvram"].devices[0]
+        affected = len(tr.clovis.store.objects_on_device(dev0.name))
+        t0 = time.perf_counter()
+        repaired = tr.ha.engage_repair(dev0.name)
+        ha_s = time.perf_counter() - t0
+        if not repaired:
+            fail(f"[train] HA repaired nothing on {dev0.name}")
+        log(f"[train] HA: {dev0.name} killed; {affected} objects of its "
+            f"tier checked, {len(repaired)} re-silvered (a block with no "
+            f"healthy copy left), in {ha_s:.3f} s")
+        del params, opt
+        torch.cuda.empty_cache()
+
+        # 4. restart: a new Trainer on the same root
+        tr2 = Trainer(cfg, run, root, device=dev)
+        t0 = time.perf_counter()
+        got = tr2.try_restore()
+        torch.cuda.synchronize(dev)
+        restore_s = time.perf_counter() - t0
+        if got is None or got[0] != TRAIN_RESTART:
+            fail(f"[train] restart found step "
+                 f"{None if got is None else got[0]}, not {TRAIN_RESTART}")
+        step, params, opt = got
+        same_bits(torch, f"restore of step {step}",
+                  {"params": params, "opt": opt}, saved)
+        log(f"[train] restart: a new Trainer restored step {step} in "
+            f"{restore_s:.3f} s, equal bit for bit to the host snapshot "
+            f"of step {TRAIN_RESTART} ({len(saved)} leaves)")
+        del saved
+
+        # 5. steps 21-40
+        loader = TokenLoader(tr2.clovis, batch=b, seq=s, start_step=step)
+        ext.reset_launch_counts()               # the train path starts here
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt, hist2 = tr2.train(TRAIN_STEPS, loader, start_step=step,
+                                       params=params, opt_state=opt,
+                                       log_every=1)
+        torch.cuda.synchronize(dev)
+        wall2 = time.perf_counter() - t0
+        launches2 = ext.LAUNCHES["ssd_scan"]    # ends here
+        loader.close()
+        if launches2 != n_layers * (TRAIN_STEPS - step):
+            fail(f"[train] steps {step + 1}-{TRAIN_STEPS} launched B6 "
+                 f"{launches2} times, expected {n_layers} a step")
+        peak = torch.cuda.max_memory_allocated(dev)
+
+        # 6. the losses
+        losses = [l for _, l in hist + hist2]
+        if [st for st, _ in hist + hist2] != list(range(1, TRAIN_STEPS + 1)):
+            fail("[train] the loss history skips steps")
+        if not all(np.isfinite(losses)):
+            fail(f"[train] non-finite losses: {losses}")
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        if not last < first:
+            fail(f"[train] the loss did not fall: mean of steps 1-5 "
+                 f"{first:.4f}, of steps {TRAIN_STEPS - 4}-{TRAIN_STEPS} "
+                 f"{last:.4f}")
+        n_steps = TRAIN_STEPS
+        log(f"[train] losses {json.dumps([round(l, 4) for l in losses])}; "
+            f"mean of steps 1-5 {first:.4f}, of steps {TRAIN_STEPS - 4}-"
+            f"{TRAIN_STEPS} {last:.4f}; "
+            f"wall {wall1:.3f} s for steps 1-{TRAIN_RESTART} and "
+            f"{wall2:.3f} s for steps {TRAIN_RESTART + 1}-{TRAIN_STEPS} "
+            f"(stream checkpoints included) = "
+            f"{n_steps * b * s / (wall1 + wall2):.1f} tokens/s; B6 "
+            f"launches {launches} + {launches2} ({n_layers} a step); peak "
+            f"card memory {peak} B; checkpoints {ckpt1} + "
+            f"{[(i.step, i.strategy, round(i.seconds, 3)) for i in tr2.ckpt.history]}")
+        tr2.ckpt.close()
+
+        # 7. one checkpoint of the whole state with each strategy
+        state = {"params": params, "opt": opt}
+        want = host_snapshot(torch, state)
+        for i, strategy in enumerate(("collective", "window", "stream")):
+            cm = CheckpointManager(tr2.clovis, strategy=strategy)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            info = cm.save(1000 + i, state)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = cm.restore(1000 + i, like=state, device=dev)
+            torch.cuda.synchronize(dev)
+            load_s = time.perf_counter() - t0
+            cm.close()
+            same_bits(torch, f"{strategy} restore", out, want)
+            del out
+            log(f"[train] {strategy}: {info.n_leaves} leaves, {info.bytes} "
+                f"B saved in {save_s:.3f} s = {info.bytes / save_s / 1e9:.3f} "
+                f"GB/s, restored to the card in {load_s:.3f} s = "
+                f"{info.bytes / load_s / 1e9:.3f} GB/s, equal bit for bit")
+        del want
+
+        # 8. a step split into forward, backward and optimizer
+        loader = TokenLoader(tr2.clovis, batch=b, seq=s,
+                             start_step=TRAIN_STEPS)
+        flat = leaves(params)
+        split = []
+        for _ in range(TRAIN_TIMED_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in next(loader).items()}
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            (loss, _), kms = kernel_event_times(
+                torch, lambda: mdl.loss_fn(params, batch, cfg))
+            ev[1].record()
+            grads = torch.autograd.grad(loss, flat)
+            ev[2].record()
+            adamw_update(params, unflatten(params, grads), opt, run)
+            ev[3].record()
+            ev[3].synchronize()
+            split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)]
+                         + [kms["ssd_scan"]])
+            del grads, loss
+        loader.close()
+        fwd, bwd, opt_ms, b6_in_fwd = (float(np.median([r[j] for r in split]))
+                                      for j in range(4))
+        step_ms = fwd + bwd + opt_ms
+        b6_ms, b6_bwd_ms, b6_rel = b6_train_ms(torch, KS, dev, cfg)
+        log(f"[train] a step (median of {TRAIN_TIMED_STEPS}, CUDA events): "
+            f"forward {fwd:.3f} ms, backward {bwd:.3f} ms, optimizer "
+            f"{opt_ms:.3f} ms, total {step_ms:.3f} ms = "
+            f"{b * s / step_ms * 1e3:.1f} tokens/s; B6 in the forward "
+            f"{b6_in_fwd:.3f} ms ({n_layers} launches) = "
+            f"{b6_in_fwd / fwd:.4f} of it; B6 at the train shape (b {b}, s "
+            f"{s}, h {cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim}, p "
+            f"{cfg.ssm_headdim}, n {cfg.ssm_state}) {b6_ms:.4f} ms a launch "
+            f"(device), y and final state against ssd_chunked {b6_rel:.3e} "
+            f"of the (batch, head)'s max (limit {SSD_RTOL}), its recomputing backward {b6_bwd_ms:.3f} ms a layer "
+            f"= {n_layers * b6_bwd_ms / bwd:.4f} of the backward if "
+            f"{n_layers} layers; {smi}")
+        return {"ssd_scan": launches + launches2}
+    finally:
+        remove_store(root)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2019,12 +2473,14 @@ def main() -> int:
     stream = phase_stream(torch, K, col, dev)
     cluster = phase_cluster(torch, K, col, dev, main_values)
     served = phase_serving(torch, K, col, dev, main_values)
+    edge = phase_edge(torch, K, col, dev, smi)
     launches.update(phase_serve(
         torch, _ext, get_config(SERVE_ARCH).scaled(dtype="float32"), dev))
     launches.update(phase_serve(
         torch, _ext, get_config(SSM_ARCH).scaled(dtype="float32"), dev,
         tag="serve-ssm", expect_params=SSM_PARAMS, batch=SSM_BATCH,
         prompt=SSM_PROMPT, gen=SSM_GEN))
+    trained = phase_train(torch, _ext, KS, dev, smi)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -2047,6 +2503,8 @@ def main() -> int:
     log(f"[cluster] launches: {json.dumps(cluster)}")
     log(f"[serving] launches: {json.dumps(served['serving'])}; "
         f"[compaction] launches: {json.dumps(served['compaction'])}")
+    log(f"[edge] launches: {json.dumps(edge)}; [train] launches over "
+        f"{TRAIN_STEPS} steps: {json.dumps(trained)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)                          # nvidia-smi's "name, power.limit"
     print(json.dumps({"kernels": rows}))

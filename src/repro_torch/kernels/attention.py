@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch._ext import count_launch
+from repro_torch.kernels.grad import wants_grad, with_plain_grad
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,10 +46,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window > 0:
         mask &= ki > qi - window
     s.masked_fill_(~mask, float("-inf"))
-    m = s.amax(-1, keepdim=True)
+    # the row max only shifts the exponent, so its gradient cancels: it is
+    # held constant, which leaves the in-place steps legal under autograd
+    # (B5's backward recomputes and differentiates this)
+    m = s.detach().amax(-1, keepdim=True)
     m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
     p = s.sub_(m).exp_()
-    l = p.sum(-1, keepdim=True).clamp_min_(1e-37)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-37)
     o = torch.matmul(p.reshape(b, kvh, g * sq, sk), v.float())
     o = o.reshape(b, kvh, g, sq, -1) / l
     return o.reshape(b, h, sq, -1).to(q.dtype)
@@ -74,11 +78,23 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (b, h, sq, hd); k/v (b, kv, sk, hd) with h % kv == 0; returns
     (b, h, sq, hd).  A CUDA tensor launches ``sage_flash_attention``
     (f32, contiguous, hd in {64, 128, 256}); a CPU tensor runs
-    ``flash_attention_plain``."""
+    ``flash_attention_plain``.  Where autograd records and an input
+    requires grad, the CUDA route still launches the kernel, and its
+    backward is the gradient of ``flash_attention_plain`` recomputed from
+    the saved inputs (``kernels.grad``)."""
     _check(q, k, v)
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
-                                     window=window, softcap=softcap)
+        return flash_attention_plain(q, k, v, **kw)
+    if wants_grad(q, k, v):
+        return with_plain_grad(
+            lambda *a: _launch(*a, **kw),
+            lambda *a: flash_attention_plain(*a, **kw), q, k, v)
+    return _launch(q, k, v, **kw)
+
+
+def _launch(q, k, v, *, scale, causal, window, softcap):
+    """One launch of ``sage_flash_attention`` on checked CUDA inputs."""
     if {q.dtype, k.dtype, v.dtype} != {torch.float32}:
         raise TypeError(f"sage_flash_attention takes float32, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")

@@ -1,0 +1,49 @@
+"""Gradients through the model kernels B5, B6 and B7.
+
+The reference has no backward kernel: JAX differentiates the plain
+functions it trains with (``ssd_chunked``, the dense attention, the
+associative scan), and no Pallas kernel of it has a ``custom_vjp``.  On
+the card the port's forward launches the kernel, so the kernel's output
+needs a gradient of its own: ``with_plain_grad`` wraps a launch in a
+``torch.autograd.Function`` whose backward recomputes the kernel's plain
+version from the saved inputs and returns ``torch.autograd.grad`` of it.
+That is the gradient the reference takes, at the cost of one more
+forward of the plain version per call.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+
+class _KernelWithPlainGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, launch, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return launch(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[2:]
+        inputs = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            outs = ctx.plain(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        wrt = [t for t, n in zip(inputs, need) if n]
+        got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
+        return (None, None) + tuple(next(got) if n else None for n in need)
+
+
+def wants_grad(*tensors) -> bool:
+    """True when autograd records and some input requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def with_plain_grad(launch: Callable, plain: Callable, *inputs):
+    """``launch(*inputs)`` (the kernel: a tensor or a tuple of them) with
+    the gradient of ``plain(*inputs)``.  Inputs may include None."""
+    return _KernelWithPlainGrad.apply(launch, plain, *inputs)

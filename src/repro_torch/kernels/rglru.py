@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from repro_torch._ext import count_launch
+from repro_torch.kernels.grad import wants_grad, with_plain_grad
 
 
 def rglru_scan_plain(a: torch.Tensor, x: torch.Tensor,
@@ -36,7 +37,10 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """a, x: (b, s, w); h0: (b, w) or None.  Returns h (b, s, w) f32.  A
     CUDA tensor launches ``sage_rglru_scan`` (f32, contiguous); a CPU
-    tensor runs ``rglru_scan_plain``."""
+    tensor runs ``rglru_scan_plain``.  Where autograd records and an
+    input requires grad, the CUDA route still launches the kernel, and its
+    backward is the gradient of ``rglru_scan_plain`` recomputed from the
+    saved inputs (``kernels.grad``)."""
     if a.dim() != 3 or a.shape != x.shape:
         raise ValueError(f"rglru_scan takes a, x of one (b, s, w) shape, "
                          f"got {tuple(a.shape)} and {tuple(x.shape)}")
@@ -49,6 +53,15 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
         raise ValueError("rglru_scan: a, x and h0 must share a device")
     if not a.is_cuda:
         return rglru_scan_plain(a, x, h0)
+    if wants_grad(*tensors):
+        return with_plain_grad(_launch, rglru_scan_plain, a, x, h0)
+    return _launch(a, x, h0)
+
+
+def _launch(a, x, h0):
+    """One launch of ``sage_rglru_scan`` on checked CUDA inputs."""
+    b, s, w = a.shape
+    tensors = (a, x) if h0 is None else (a, x, h0)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("sage_rglru_scan takes float32 a, x and h0")
     if not all(t.is_contiguous() for t in tensors):

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._ext import count_launch
+from repro_torch.kernels.grad import wants_grad, with_plain_grad
 
 KERNEL_STATES = (16, 32, 64, 128, 256)   # state sizes n the kernel takes
 # rows per chunk of the kernel's states and per sub-chunk of its scores:
@@ -82,13 +83,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     lo = (cs - hi).to(dA.dtype)
 
     # intra-chunk (diagonal blocks): Y = (C B^T . decay . causal) @ (dt*x)
+    # (out of place throughout, so that autograd can take its gradient:
+    # the card's B6 backward recomputes this function)
     scores = torch.einsum("bclgn,bcsgn->bcgls", Cc, Bc)   # (b,nc,g,L,L)
-    gated = _segsum(hi).exp_().view(b, nc, g, r, L, L)
-    gated.mul_(scores[:, :, :, None]).mul_(
-        (dt_hl * torch.exp(-lo)).reshape(b, nc, g, r, 1, L))
+    gated = torch.exp(_segsum(hi)).view(b, nc, g, r, L, L)
+    gated = gated * scores[:, :, :, None]
+    gated = gated * (dt_hl * torch.exp(-lo)).reshape(b, nc, g, r, 1, L)
     y_diag = torch.matmul(gated.view(b, nc, h, L, L),
                           xc.permute(0, 1, 3, 2, 4))   # (b,nc,h,L,p)
-    y_diag.mul_(torch.exp(lo)[..., None])
+    y_diag = y_diag * torch.exp(lo)[..., None]
     del gated, scores
 
     # chunk-final states: S_c = sum_t a(t->end) * dt_t * B_t (x) x_t
@@ -151,16 +154,32 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     p, n) f32), and walk each chunk in ``KERNEL_SUB``-row sub-chunks on
     the tensor cores (split TF32).  The chunked form is exact for any chunk
     length, so ``chunk`` only sets the plain version's chunks and the two
-    differ by rounding.  A CPU tensor runs ``ssd_chunked``."""
+    differ by rounding.  A CPU tensor runs ``ssd_chunked``.
+
+    Where autograd records and an input requires grad, the CUDA route
+    still launches the kernel, and its backward is the gradient of
+    ``ssd_chunked`` at ``chunk`` recomputed from the saved inputs
+    (``kernels.grad``), for every input the state included."""
     _check(x, dt, a_log, B, C, initial_state)
-    b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
     tensors = (x, dt, a_log, B, C) + (
         () if initial_state is None else (initial_state,))
     if any(t.device != x.device for t in tensors):
         raise ValueError("ssd_scan: every input must be on one device")
     if not x.is_cuda:
         return ssd_chunked(x, dt, a_log, B, C, chunk, initial_state)
+    if wants_grad(*tensors):
+        return with_plain_grad(
+            _launch, lambda *a: ssd_chunked(*a[:5], chunk, a[5]),
+            x, dt, a_log, B, C, initial_state)
+    return _launch(x, dt, a_log, B, C, initial_state)
+
+
+def _launch(x, dt, a_log, B, C, initial_state):
+    """One launch of ``sage_ssd_scan`` on checked CUDA inputs."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    tensors = (x, dt, a_log, B, C) + (
+        () if initial_state is None else (initial_state,))
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("sage_ssd_scan takes float32 inputs")
     if not all(t.is_contiguous() for t in tensors):

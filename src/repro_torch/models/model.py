@@ -1,6 +1,9 @@
-"""Model facade for serving (the port of ``repro.models.model``):
+"""Model facade (the port of ``repro.models.model``):
 
   init_params(cfg, seed=0, device=None)        -> param tree
+  forward_train(params, batch, cfg)            -> (logits, aux, hidden)
+  loss_fn(params, batch, cfg)                  -> (loss, metrics)
+  make_batch(seed, cfg, batch, seq)            -> numpy tokens/labels
   init_decode_state(cfg, batch, max_len, ...)  -> cache tree
   prefill(params, batch, cfg, cache)           -> (last-token logits, cache)
   decode_step(params, token, position, cfg, cache) -> (logits, cache)
@@ -13,13 +16,15 @@ through host memory.  The numbers differ from the reference's
 ``jax.random`` draws; ``models.convert.params_from_jax`` carries the
 reference's own parameters over where the two must agree.
 
-Training (``forward_train``, ``loss_fn``) waits for its slice (ROADMAP A12).
+Batches are dicts of (batch, seq) token ids, numpy arrays or tensors;
+each entry point moves them to the parameters' device.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -28,7 +33,9 @@ from repro_torch.models import common
 from repro_torch.models.common import dense_init, embed_init
 from repro_torch.models.transformer import (apply_norm, check_config,
                                             init_norm, init_stack,
-                                            init_stack_cache, stack_step)
+                                            init_stack_cache, stack_step,
+                                            stack_forward_train)
+from repro_torch.tree import leaves
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -64,27 +71,19 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return _init(gen, cfg, dtype, dev)
 
 
+def params_like(cfg: ModelConfig, dtype=torch.float32) -> Dict[str, Any]:
+    """The parameter tree on the ``meta`` device: shapes and dtypes only,
+    nothing allocated (a checkpoint restore's ``like``)."""
+    return _init(None, cfg, dtype, torch.device("meta"))
+
+
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False,
                           exclude_embed: bool = False) -> int:
-    """Parameter count from the port's own init on the ``meta`` device
-    (shapes only; nothing is allocated)."""
-    params = _init(None, cfg, torch.float32, torch.device("meta"))
-    total = sum(t.numel() for t in leaves(params))
+    """Parameter count from the port's own init on the ``meta`` device."""
+    total = sum(t.numel() for t in leaves(params_like(cfg)))
     if exclude_embed:
         total -= cfg.vocab_size * cfg.d_model
     return total
-
-
-def leaves(tree):
-    """Every tensor of a parameter or cache tree."""
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from leaves(v)
-    else:
-        for v in tree:
-            yield from leaves(v)
 
 
 # --------------------------------------------------------------------------
@@ -116,11 +115,73 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _check_batch(batch: Dict):
-    extra = sorted(set(batch) - {"tokens"})
+    extra = sorted(set(batch) - {"tokens", "labels"})
     if extra:
         raise NotImplementedError(
             f"batch inputs {extra} (encoder frames / image embeddings) wait "
             f"for the encoder-decoder and vision slices (ROADMAP A11)")
+
+
+def _tokens(batch: Dict, key: str, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(batch[key]).to(dev, torch.long)
+
+
+# --------------------------------------------------------------------------
+# Train forward + loss
+# --------------------------------------------------------------------------
+
+def forward_train(params, batch: Dict, cfg: ModelConfig, *,
+                  remat: str = "none", use_kernels: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (logits f32 (b, s, vocab), aux loss, final hidden).
+    ``use_kernels`` runs the attention and the scans through B5, B6 and
+    B7 (their plain versions on the CPU), with gradients on the card
+    through ``kernels.grad``; False takes the reference's dense
+    attention, log-depth scan and chunked SSD."""
+    _check_batch(batch)
+    dev = params["embed"].device
+    tokens = _tokens(batch, "tokens", dev)
+    b, s = tokens.shape
+    x = _embed(params, tokens, cfg, compute_dtype(cfg))
+    positions = torch.arange(s, dtype=torch.int32, device=dev)[None] \
+        .expand(b, s)
+    x, aux = stack_forward_train(params["decoder"], x, cfg,
+                                 positions=positions, remat=remat,
+                                 use_kernels=use_kernels)
+    return _logits(params, x, cfg), aux, x
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked token cross entropy; labels < 0 are ignored."""
+    mask = (labels >= 0).float()
+    safe = labels.clamp_min(0)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    denom = mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() / denom, denom
+
+
+def loss_fn(params, batch: Dict, cfg: ModelConfig, *, remat: str = "none",
+            use_kernels: bool = True) -> Tuple[torch.Tensor, Dict]:
+    """-> (loss, {"ce", "aux", "tokens", "loss"}), the reference's."""
+    logits, aux, _ = forward_train(params, batch, cfg, remat=remat,
+                                   use_kernels=use_kernels)
+    ce, n_tok = _ce(logits, _tokens(batch, "labels", logits.device))
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": n_tok, "loss": loss}
+
+
+def make_batch(seed: int, cfg: ModelConfig, batch: int, seq: int
+               ) -> Dict[str, np.ndarray]:
+    """A random training batch from a numpy seed: tokens uniform over the
+    real vocabulary, labels the next token (-1 at the end).  The
+    reference draws from a ``jax.random`` key, so the two differ."""
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_real, (batch, seq)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((batch, 1), -1, np.int32)],
+                            axis=1)
+    return {"tokens": toks, "labels": labels}
 
 
 # --------------------------------------------------------------------------

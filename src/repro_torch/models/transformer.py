@@ -1,7 +1,7 @@
 """Decoder stacks over the block zoo (the port of
 ``repro.models.transformer``), for the kinds the port serves: global and
 local (sliding-window) attention, the RG-LRU block and the Mamba2 SSD
-block, in modes prefill and decode.
+block, in modes train, prefill and decode.
 
 The reference groups layers into repetitions of the architecture's
 ``attn_pattern`` and scans them over stacked parameters ("scan" layout);
@@ -10,15 +10,23 @@ list and walks it with a Python loop.  ``stack_plan`` still splits the
 layers into (prefix, reps x pattern, extra), so the reference's
 parameters map onto the port's one for one (``models.convert``).
 
+The train mode (``stack_forward_train``) runs the same blocks over the
+whole sequence with no cache.  Its ``remat`` ``"dots"`` and ``"full"``
+both recompute each whole block in the backward
+(``torch.utils.checkpoint``): PyTorch has no counterpart of XLA's
+save-the-dots policy, so ``"dots"`` costs the memory of ``"full"`` and
+gives the same numbers (ROADMAP C14).
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: the cross and encoder/encdec kinds, MLA, MoE and the audio
-family's LayerNorm MLP (A11); the train mode (A12).
+item: the cross and encoder/encdec kinds, MLA, MoE, multi-token
+prediction and the audio family's LayerNorm MLP (A11).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
                                       ModelConfig)
@@ -117,15 +125,21 @@ def block_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                   position: Optional[int] = None,
                   cache: Optional[Dict] = None, use_kernels: bool = True
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """One block in mode ``prefill`` or ``decode``.  Returns
-    (x, new_cache).  ``use_kernels`` picks B5/B6/B7 for the prefill's
-    attention and scans; decode runs plain torch either way."""
-    if mode not in ("prefill", "decode"):
-        raise not_ported(f"block mode {mode!r}", "A12")
+    """One block in mode ``train``, ``prefill`` or ``decode``.  Returns
+    (x, new_cache); train keeps no cache (None).  ``use_kernels`` picks
+    B5/B6/B7 for the attention and scans of train and prefill (on the
+    card they carry their gradients: ``kernels.grad``); decode runs plain
+    torch either way."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown block mode {mode!r}")
     h = apply_norm(p["ln1"], x, cfg)
     window = cfg.local_window if kind == LOCAL_ATTN else 0
+    new_cache = None
     if kind in (GLOBAL_ATTN, LOCAL_ATTN):
-        if mode == "prefill":
+        if mode == "train":
+            mix = attn.self_attention(p["mixer"], h, positions, cfg,
+                                      window=window, use_kernels=use_kernels)
+        elif mode == "prefill":
             mix, new_cache = attn.prefill_attention(
                 p["mixer"], h, positions, cfg, cache, window=window,
                 use_kernels=use_kernels)
@@ -133,13 +147,18 @@ def block_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
             mix, new_cache = attn.decode_attention(
                 p["mixer"], h, position, cfg, cache, window=window)
     elif kind == RGLRU:
-        if mode == "prefill":
+        if mode == "train":
+            mix, _, _ = rglru.rglru_block(p["mixer"], h, cfg,
+                                          use_kernels=use_kernels)
+        elif mode == "prefill":
             mix, new_cache = rglru.rglru_prefill(
                 p["mixer"], h, cfg, cache, use_kernels=use_kernels)
         else:
             mix, new_cache = rglru.rglru_decode(p["mixer"], h, cfg, cache)
     elif kind == SSD:
-        if mode == "prefill":
+        if mode == "train":
+            mix = ssm.ssm_block(p["mixer"], h, cfg, use_kernels=use_kernels)
+        elif mode == "prefill":
             mix, new_cache = ssm.ssm_prefill(p["mixer"], h, cfg, cache,
                                              use_kernels=use_kernels)
         else:
@@ -209,6 +228,27 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
     return {part: [init_block_cache(cfg, kind, batch, max_len, dtype,
                                     device) for kind in kinds]
             for part, kinds in stack_kinds(cfg).items()}
+
+
+def stack_forward_train(stack: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                        positions: torch.Tensor, remat: str = "none",
+                        use_kernels: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The full-sequence walk over every layer -> (x, aux loss).  The
+    ported kinds have no router, so the aux loss is a zero, as the
+    reference's is for them.  ``remat`` other than ``"none"`` recomputes
+    each block in the backward (see the module's docstring)."""
+    if remat not in ("none", "dots", "full"):
+        raise ValueError(f"unknown remat policy {remat!r}")
+    for part, kinds in stack_kinds(cfg).items():
+        for bp, kind in zip(stack[part], kinds):
+            def block(x, bp=bp, kind=kind):
+                return block_forward(bp, x, cfg, kind, mode="train",
+                                     positions=positions,
+                                     use_kernels=use_kernels)[0]
+            x = (block(x) if remat == "none"
+                 else checkpoint(block, x, use_reentrant=False))
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def stack_step(stack: Dict, caches: Dict, x: torch.Tensor,

@@ -571,3 +571,136 @@ def test_mamba2_server_kernel_path_matches_plain_path_on_cuda(dev, tmp_path):
     np.testing.assert_array_equal(out_k, out_p)
     for a, b in zip(st_k["logits"], st_p["logits"]):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# gradients through the model kernels: the forward launches the kernel,
+# the backward recomputes the plain version (kernels.grad); each input's
+# gradient within 1e-3 of that input's largest |g| through the plain path
+# ---------------------------------------------------------------------------
+
+GRAD_RTOL = 1e-3
+
+
+def _grads_match(dev, kernel_fn, plain_fn, inputs, launches_name):
+    from repro_torch import _ext
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    kin = [t.clone().requires_grad_(True) for t in inputs]
+    pin = [t.clone().requires_grad_(True) for t in inputs]
+    _ext.reset_launch_counts()
+    kout = kernel_fn(*kin)
+    assert _ext.LAUNCHES[launches_name] == 1
+    pout = plain_fn(*pin)
+    kout = kout if isinstance(kout, tuple) else (kout,)
+    pout = pout if isinstance(pout, tuple) else (pout,)
+    assert all(o.grad_fn is not None for o in kout)
+    ws = [torch.randn(o.shape, generator=gen, device=dev) for o in pout]
+    kg = torch.autograd.grad(sum((o * w).sum() for o, w in zip(kout, ws)),
+                             kin)
+    pg = torch.autograd.grad(sum((o * w).sum() for o, w in zip(pout, ws)),
+                             pin)
+    assert _ext.LAUNCHES[launches_name] == 1      # the backward launches none
+    for k, p in zip(kg, pg):
+        scale = float(p.abs().max())
+        assert float((k - p).abs().max()) <= GRAD_RTOL * scale
+
+
+@pytest.mark.parametrize("causal,window,softcap,kv",
+                         [(True, 0, 0.0, 2), (True, 48, 30.0, 1),
+                          (False, 0, 0.0, 4)])
+def test_flash_attention_gradient_matches_plain(dev, causal, window, softcap,
+                                                kv):
+    from repro_torch.kernels import attention as KA
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    b, h, s, hd = 2, 4, 130, 64
+    q, k, v = (torch.randn(shape, generator=g, device=dev) for shape in
+               ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+              softcap=softcap)
+
+    def plain(q, k, v):
+        return KA.flash_attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            **kw).transpose(1, 2)
+    _grads_match(dev, lambda q, k, v: KA.flash_attention(q, k, v, **kw),
+                 plain, [q, k, v], "flash_attention")
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_gradient_matches_plain(dev, with_h0):
+    from repro_torch.kernels import rglru as KR
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    b, s, w = 2, 50, 40
+    a = torch.rand((b, s, w), generator=g, device=dev) * 0.5 + 0.45
+    x = torch.randn((b, s, w), generator=g, device=dev)
+    inputs = [a, x] + ([torch.randn((b, w), generator=g, device=dev)]
+                       if with_h0 else [])
+    _grads_match(dev, KR.rglru_scan, KR.rglru_scan_plain, inputs,
+                 "rglru_scan")
+
+
+@pytest.mark.parametrize("b,s,h,p,n,g,chunk,with_state",
+                         [(2, 300, 4, 64, 128, 1, 256, True),
+                          (1, 77, 4, 32, 16, 2, 16, False)])
+def test_ssd_gradient_matches_plain(dev, b, s, h, p, n, g, chunk,
+                                    with_state):
+    from repro_torch.kernels import ssd as KS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    inputs = [r(b, s, h, p), torch.rand((b, s, h), generator=gen,
+                                        device=dev) * 0.1,
+              r(h, scale=0.5), r(b, s, g, n, scale=0.3),
+              r(b, s, g, n, scale=0.3)]
+    if with_state:
+        inputs.append(r(b, h, p, n, scale=0.5))
+    _grads_match(
+        dev, lambda *t: KS.ssd_scan(*t[:5], chunk=chunk,
+                                    initial_state=t[5] if with_state
+                                    else None),
+        lambda *t: KS.ssd_chunked(*t[:5], chunk,
+                                  t[5] if with_state else None),
+        inputs, "ssd_scan")
+
+
+def test_wrappers_without_grad_keep_their_path(dev):
+    """No input requires grad: the kernel's plain launch, no grad_fn."""
+    from repro_torch.kernels import ssd as KS
+    x = torch.randn((1, 64, 2, 32), device=dev)
+    dt = torch.rand((1, 64, 2), device=dev) * 0.1
+    B = torch.randn((1, 64, 1, 16), device=dev)
+    y, final = KS.ssd_scan(x, dt, torch.zeros(2, device=dev), B, B.clone())
+    assert y.grad_fn is None and final.grad_fn is None
+
+
+def test_mamba2_train_step_on_cuda_matches_plain_path(dev, tmp_path):
+    """One loss_fn gradient of a small mamba2 (state 128, head dim 64)
+    through B6 against the use_kernels=False path on the same weights."""
+    from repro_torch import _ext
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as mdl
+    from repro_torch.tree import leaves
+    cfg = get_smoke_config("mamba2-130m").scaled(
+        dtype="float32", ssm_state=128, ssm_headdim=64, d_model=128,
+        ssm_chunk=64)
+    params = mdl.init_params(cfg, device=dev)
+    batch = mdl.make_batch(0, cfg, 2, 96)
+    flat = leaves(params)
+    for t in flat:
+        t.requires_grad_(True)
+    out = {}
+    for use in (True, False):
+        _ext.reset_launch_counts()
+        loss, _ = mdl.loss_fn(params, batch, cfg, use_kernels=use)
+        out[use] = (loss, torch.autograd.grad(loss, flat))
+        assert _ext.LAUNCHES["ssd_scan"] == (cfg.n_layers if use else 0)
+    (lk, gk), (lp, gp) = out[True], out[False]
+    assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
+    for k, p in zip(gk, gp):
+        assert float((k - p).abs().max()) <= GRAD_RTOL * float(
+            p.abs().max())

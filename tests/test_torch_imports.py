@@ -76,7 +76,13 @@ print(" ".join(names))
                      "repro_torch.percipience.telemetry",
                      "repro_torch.core.streams",
                      "repro_torch.core.storage_window",
-                     "repro_torch.analytics.streaming"}
+                     "repro_torch.analytics.streaming",
+                     "repro_torch.edge", "repro_torch.edge.ingest",
+                     "repro_torch.data.pipeline", "repro_torch.optim.adamw",
+                     "repro_torch.optim.compression",
+                     "repro_torch.checkpoint.manager",
+                     "repro_torch.kernels.grad", "repro_torch.tree",
+                     "repro_torch.launch.steps", "repro_torch.launch.train"}
 
 
 @pytest.fixture()

@@ -25,6 +25,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import attention, common, convert, rglru
 from repro_torch.models import model as mdl
 from repro_torch.models import transformer as tfm
+from repro_torch.tree import leaves
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 LOGIT_TOL = dict(atol=2e-4, rtol=1e-4)
@@ -296,7 +297,7 @@ def test_param_tree_matches_reference_shapes():
                              jax.random.key(0))
     n_j = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(jshapes))
     params = mdl.init_params(cfg, device="cpu")
-    n_p = sum(t.numel() for t in mdl.leaves(params))
+    n_p = sum(t.numel() for t in leaves(params))
     assert n_p == n_j == mdl.count_params_analytic(cfg)
 
 
@@ -320,6 +321,12 @@ def test_unported_kinds_raise():
         mdl.prefill(params, {"tokens": np.zeros((1, 4), np.int32),
                              "frames": None}, cfg, cache)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.block_forward(params["decoder"]["unrolled"][0],
-                          torch.zeros(1, 2, cfg.d_model), cfg, "rglru",
-                          mode="train")
+        mdl.loss_fn(params, {"tokens": np.zeros((1, 4), np.int32),
+                             "labels": np.zeros((1, 4), np.int32),
+                             "image_embeds": None}, cfg)
+    # the train mode of the ported kinds runs (tests/test_torch_train.py
+    # holds it to the reference)
+    out, cache = tfm.block_forward(params["decoder"]["unrolled"][0],
+                                   torch.zeros(1, 2, cfg.d_model), cfg,
+                                   "rglru", mode="train")
+    assert out.shape == (1, 2, cfg.d_model) and cache is None

@@ -29,6 +29,7 @@ from repro_torch.kernels import ssd_chunked, ssd_scan
 from repro_torch.models import convert, ssm
 from repro_torch.models import model as mdl
 from repro_torch.models import transformer as tfm
+from repro_torch.tree import leaves
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 SEQ_TOL = dict(atol=2e-4, rtol=1e-3)
@@ -269,7 +270,7 @@ def test_param_tree_matches_reference_shapes():
     assert "lm_head" not in params           # tied embeddings
     assert all("mlp" not in bp and "ln2" not in bp
                for bp in params["decoder"]["unrolled"])
-    assert sum(t.numel() for t in mdl.leaves(params)) == n_j \
+    assert sum(t.numel() for t in leaves(params)) == n_j \
         == mdl.count_params_analytic(cfg)
 
 
