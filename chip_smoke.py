@@ -69,7 +69,23 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
    ``[serve]`` has freed its weights): mamba2-130m at full width
    (128,983,488 f32 parameters from seed 0) serves 4 prompts of 16,000
    tokens and 32 greedy tokens the same way; its prefill must launch B6
-   24 times and B5/B7 never.
+   24 times and B5/B7 never.  ``[serve-moe]``: qwen2-moe-a2.7b at full
+   width and depth (14,315,784,192 f32 parameters from seed 0; 24 MoE
+   layers of 60 routed experts, top 4, capacity factor 1.25, and 4
+   shared) serves 4 prompts of 4,000 tokens and 32 greedy tokens the
+   same way; its prefill must launch B5 24 times (MHA, hd 128) and
+   B6/B7 never; the prefill is split by CUDA events into B5, the
+   router, dispatch, expert products, combine and shared experts, and
+   the two paths' routing choices are compared.  ``[serve-mla]``:
+   deepseek-v3-671b at full width, its depth cut to its 3 dense layers
+   and 1 MoE layer (256 experts, top 8, sigmoid router with its bias)
+   and no MTP (15,111,101,696 f32 parameters) serves 2 prompts of 1,024
+   tokens and 16 greedy tokens; it runs no TPU kernel (MLA's q/k heads
+   are wider than its v heads), so instead of a plain path it is held
+   to the reference's own invariant: on the same weights at capacity
+   E/k (lossless), 1 prompt of 256 tokens, prefill plus 8 absorbed
+   decode steps give the expanded form's full-forward logits over the
+   prompt and the fed tokens (within ``SERVE_LOGIT_RTOL``).
 7. ``[edge]``: ``benchmarks/bench_edge.py``'s hostile schedule (seed
    2026, 4 producers, 1,200 events, 3 crashes: duplicates, reordering,
    poison, a torn tail) through the port's ``EdgeIngestor`` into a
@@ -98,6 +114,7 @@ It imports nothing of JAX or of the reference package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import importlib.util
 import json
@@ -143,6 +160,12 @@ SERVE_ARCH, SERVE_PARAMS = "recurrentgemma-9b", 9_627_414_528
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4000, 32
 SSM_ARCH, SSM_PARAMS = "mamba2-130m", 128_983_488
 SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 16000, 32   # 16,000 = 62.5 chunks
+MOE_ARCH, MOE_PARAMS = "qwen2-moe-a2.7b", 14_315_784_192
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 4000, 32
+MLA_ARCH, MLA_PARAMS = "deepseek-v3-671b", 15_111_101_696
+MLA_CUT = dict(n_layers=4, mtp_depth=0)   # 3 dense + 1 MoE layer, no MTP
+MLA_BATCH, MLA_PROMPT, MLA_GEN = 2, 1024, 16
+MLA_CHECK_PROMPT, MLA_CHECK_STEPS = 256, 8   # the lossless invariant's run
 SSD_RTOL = 1e-4                # B6 vs plain, of the (batch, head)'s max |value|
 SSD_SEQ_RTOL = 1e-3            # B6 vs the sequential oracle (step-by-step
                                # decays against exponentiated cumsums)
@@ -170,7 +193,9 @@ ATTN_CASES = ((4, 16, 1, 4000, 4000, 256, True, 2048, 0.0),
               # 128-row query tile, the window's edge inside a tile
               (1, 16, 1, 1000, 1000, 256, True, 333, 30.0),
               (2, 4, 2, 77, 1001, 256, False, 0, 30.0),   # sq < sk
-              (1, 8, 2, 250, 250, 256, True, 17, 0.0))    # GQA, window < tile
+              (1, 8, 2, 250, 250, 256, True, 17, 0.0),    # GQA, window < tile
+              (4, 16, 16, 4000, 4000, 128, True, 0, 0.0))  # qwen2-moe's prefill
+ATTN_MOE_CASE = len(ATTN_CASES) - 1
 # (b, s, w, h0); the first two are the serving shape of the RG-LRU layers
 # s not a multiple of the 32-step stage, w not a multiple of the 32-channel
 # block (16-byte copies at w % 4 == 0, 4-byte ones otherwise)
@@ -977,6 +1002,24 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
         shape=f"b={b} h={h} kv={kv} s={sq} hd={hd} "
         f"window={window} f32 ({pairs} visible pairs per head)")
     del q, k, v, k16, v16, mask
+
+    # B5 at qwen2-moe's prefill shape (MHA, hd 128, causal, no window):
+    # the [serve-moe] path's launches; the yardstick is SDPA's causal form
+    b, h, kv, sq, sk, hd, causal, window, cap = ATTN_CASES[ATTN_MOE_CASE]
+    q, k, v = attn_inputs(torch, gen, dev, b, h, kv, sq, sk, hd)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, softcap=cap)
+    pairs = attn_pairs(sq, sk, causal, window)
+    out["flash_attention@qwen2-moe"] = dict(
+        ms=device_ms(torch, lambda: KA.flash_attention_kernel(q, k, v, **kw)),
+        plain_ms=device_ms(torch, lambda: KA.flash_attention_plain(
+            q, k, v, **kw)),
+        library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=kw["scale"])),
+        bound_bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
+        bound_flops=4 * hd * pairs * b * h, flops_rate=TF32_FLOPS,
+        shape=f"b={b} h={h} kv={kv} s={sq} hd={hd} causal, no window, f32 "
+        f"({pairs} visible pairs per head)")
+    del q, k, v
 
     # B7: one RG-LRU layer of the [serve] prefill (h0 from the cache); no
     # one PyTorch call computes a linear recurrence
@@ -1811,20 +1854,32 @@ def phase_compaction(torch, K, cl, svc, dev, spec_a):
     return launches
 
 
+MOE_STEPS = {"_route": "router", "_dispatch": "dispatch",
+             "_expert_ffn": "expert GEMMs", "_combine": "combine",
+             "_shared_experts": "shared experts"}
+
+
 def kernel_event_times(torch, run):
     """Run ``run()`` with CUDA events around every B5, B6 and B7 wrapper
-    call the model layers make; returns (run's value, ms summed per
-    kernel)."""
+    call the model layers make and around each step of the MoE block
+    (``MOE_STEPS``), inside ``model.prefill`` only; returns (run's value,
+    ms summed per name)."""
     from repro_torch.models import attention as MA
+    from repro_torch.models import model as MM
+    from repro_torch.models import moe as MO
     from repro_torch.models import rglru as MR
     from repro_torch.models import ssm as MS
     targets = ((MA, "flash_attention"), (MR, "rglru_scan"),
-               (MS, "ssd_scan"))
+               (MS, "ssd_scan")) + tuple((MO, n) for n in MOE_STEPS)
     saved = [getattr(mod, name) for mod, name in targets]
+    prefill = MM.prefill
     pairs = {name: [] for _, name in targets}
+    in_prefill = [False]
 
     def timed(name, fn):
         def call(*a, **kw):
+            if not in_prefill[0]:
+                return fn(*a, **kw)
             s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             s.record()
             val = fn(*a, **kw)
@@ -1832,16 +1887,57 @@ def kernel_event_times(torch, run):
             pairs[name].append((s, e))
             return val
         return call
+
+    def timed_prefill(*a, **kw):
+        in_prefill[0] = True
+        try:
+            return prefill(*a, **kw)
+        finally:
+            in_prefill[0] = False
     try:
         for (mod, name), fn in zip(targets, saved):
             setattr(mod, name, timed(name, fn))
+        MM.prefill = timed_prefill
         value = run()
     finally:
         for (mod, name), fn in zip(targets, saved):
             setattr(mod, name, fn)
+        MM.prefill = prefill
     torch.cuda.synchronize()
     return value, {n: sum(s.elapsed_time(e) for s, e in ps)
                    for n, ps in pairs.items()}
+
+
+@contextlib.contextmanager
+def record_routes(store):
+    """Every ``moe._route`` call inside appends its (experts, slot) --
+    each token's experts and the slot it got in each, -1 if dropped --
+    to ``store``."""
+    from repro_torch.models import moe as MO
+    route = MO._route
+
+    def recording(*a, **kw):
+        val = route(*a, **kw)
+        store.append((val[2].clone(), val[3].clone()))
+        return val
+    MO._route = recording
+    try:
+        yield store
+    finally:
+        MO._route = route
+
+
+def route_flips(a, b):
+    """(token-layers whose expert choice or drop differs, token-layers)
+    between two runs' recorded routes, call by call."""
+    if len(a) != len(b):
+        fail(f"the two paths routed {len(a)} and {len(b)} times")
+    flips = total = 0
+    for (ea, sa), (eb, sb) in zip(a, b):
+        differ = (ea != eb).any(-1) | ((sa < 0) != (sb < 0)).any(-1)
+        flips += int(differ.sum())
+        total += differ.numel()
+    return flips, total
 
 
 def profile_decode(torch, step, n, tag="serve"):
@@ -1880,15 +1976,18 @@ KERNEL_TAGS = {"flash_attention": "B5", "ssd_scan": "B6", "rglru_scan": "B7"}
 def phase_serve(torch, ext, cfg, dev, *, tag="serve",
                 expect_params=SERVE_PARAMS, batch=SERVE_BATCH,
                 prompt=SERVE_PROMPT, gen=SERVE_GEN):
-    """[serve] recurrentgemma-9b (or, as [serve-ssm], mamba2-130m) at
-    full width through the port's Server: weights drawn on the card from
-    torch.Generator seed 0, ``batch`` prompts of ``prompt`` tokens (numpy
-    seed 0), ``gen`` greedy tokens.  The prefill must launch B5 once per
-    attention layer, B7 once per RG-LRU layer and B6 once per SSD layer,
-    and no other; the kernel path's logits must agree with the plain
-    path's on the same weights (one copy on the card) at prefill and at
-    every decode step fed the served tokens; the token log must read
-    back.  Returns the launches of the kernels the model runs."""
+    """[serve] recurrentgemma-9b (or, as [serve-ssm], mamba2-130m; as
+    [serve-moe], qwen2-moe-a2.7b; as [serve-mla], deepseek-v3 cut to 4
+    layers) at full width through the port's Server: weights drawn on
+    the card from torch.Generator seed 0, ``batch`` prompts of
+    ``prompt`` tokens (numpy seed 0), ``gen`` greedy tokens.  The
+    prefill must launch B5 once per attention layer (none with MLA), B7
+    once per RG-LRU layer and B6 once per SSD layer, and no other; the
+    token log must read back.  Then the kernel path's logits must agree
+    with the plain path's on the same weights (one copy on the card) at
+    prefill and at every decode step fed the served tokens; a model that
+    runs no kernel (MLA) is held to ``mla_lossless_check`` instead.
+    Returns the launches of the kernels the model runs."""
     import numpy as np
     from repro_torch.core import FunctionShipper
     from repro_torch.launch.serve import Server
@@ -1903,7 +2002,8 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
              "would differ for a reason that is neither")
     kinds = [k for ks in stack_kinds(cfg).values() for k in ks]
     want_launches = {
-        "flash_attention": kinds.count("local") + kinds.count("global"),
+        "flash_attention": 0 if cfg.use_mla else (
+            kinds.count("local") + kinds.count("global")),
         "rglru_scan": kinds.count("rglru"), "ssd_scan": kinds.count("ssd")}
     used = [k for k in MODEL_KERNELS if want_launches[k]]
     n_params = mdl.count_params_analytic(cfg)
@@ -1931,9 +2031,11 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
             f"{init_s:.3f} s; TF32 allow matmul {tf32[0]} cudnn {tf32[1]} "
             f"float32 matmul precision {tf32[2]!r}; batch {batch} x "
             f"{prompt} prompt tokens, {gen} generated")
+        routes = ([], [])
         ext.reset_launch_counts()               # the served path starts here
-        (out, stats), kms = kernel_event_times(torch, lambda: srv.generate(
-            prompts, gen, keep_logits=True))
+        with record_routes(routes[0]):
+            (out, stats), kms = kernel_event_times(
+                torch, lambda: srv.generate(prompts, gen, keep_logits=True))
         launches = {k: ext.LAUNCHES[k] for k in MODEL_KERNELS}  # ends here
         peak = torch.cuda.max_memory_allocated(dev)
         srv.close()
@@ -1947,14 +2049,20 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
             fail(f"[{tag}] tokens or logits of the wrong shape, or "
                  "non-finite logits")
         prefill_ms = stats["prefill_s"] * 1e3
+        parts = [(KERNEL_TAGS[k], kms[k]) for k in used]
+        if cfg.is_moe:
+            parts += [(f"MoE {MOE_STEPS[n]}", kms[n]) for n in MOE_STEPS]
+        rest = prefill_ms - sum(ms for _, ms in parts)
         log(f"[{tag}] kernel path: prefill {stats['prefill_s']:.3f} s "
             f"({batch * prompt / stats['prefill_s']:.1f} "
             f"prompt tok/s), decode {stats['decode_s']:.3f} s = "
             f"{stats['tok_per_s']:.2f} tok/s ({batch} x {gen}); "
             f"launches in the prefill {json.dumps(launches)}; device ms "
-            + ", ".join(f"in {KERNEL_TAGS[k]} {kms[k]:.3f} = "
-                        f"{kms[k] / prefill_ms:.4f}" for k in used)
-            + f" of the prefill; peak card memory {peak} B")
+            + ", ".join(f"in {name} {ms:.3f} = {ms / prefill_ms:.4f}"
+                        for name, ms in parts)
+            + f" of the prefill, the rest {rest:.3f} = "
+            f"{rest / prefill_ms:.4f}; peak card memory {peak} B of "
+            f"{torch.cuda.get_device_properties(dev).total_memory} B")
 
         # the token log, streamed into Clovis during decode
         cl = srv.clovis
@@ -1972,46 +2080,120 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
         log(f"[{tag}] token log stream/tokens in container servelog: "
             f"{toks.nbytes} B equal to the generated tokens; in-storage "
             f"histogram (FunctionShipper) {np.asarray(hist.value)[:8]}...")
-
-        # the plain path on the same weights: prefill, then decode fed
-        # the kernel path's tokens
-        torch.cuda.reset_peak_memory_stats(dev)
-        cache = mdl.init_decode_state(cfg, batch, max_len,
-                                      dtype=torch.float32, device=dev)
-        t0 = time.perf_counter()
-        plain, cache = mdl.prefill(srv.params, {"tokens": prompts}, cfg,
-                                   cache, use_kernels=False)
-        torch.cuda.synchronize(dev)
-        plain_s = time.perf_counter() - t0
-        rel, agree = [], 0
-        for i in range(gen + 1):
-            if i:
-                plain, cache = mdl.decode_step(
-                    srv.params, torch.from_numpy(out[:, i - 1:i]),
-                    prompt + i - 1, cfg, cache)
-            scale = float(plain.abs().max())
-            r = float((logits[i] - plain).abs().max()) / scale
-            rel.append(r)
-            agree += int((logits[i].argmax(-1) == plain.argmax(-1)).sum())
-            if not r <= SERVE_LOGIT_RTOL:
-                fail(f"[{tag}] step {i}: kernel and plain logits differ by "
-                     f"{r:.3e} of the largest |logit| (limit "
-                     f"{SERVE_LOGIT_RTOL})")
-        profile_decode(torch, lambda i: mdl.decode_step(
-            srv.params, plain.argmax(-1)[:, None], prompt + gen + i, cfg,
-            cache), PROFILE_STEPS, tag)
-        log(f"[{tag}] plain path (use_kernels=False: the reference's dense "
-            f"attention, log-depth scan and chunked SSD) on the same "
-            f"weights: prefill {plain_s:.3f} s, peak card memory "
-            f"{torch.cuda.max_memory_allocated(dev)} B; max |kernel - "
-            f"plain| / max |logit| at prefill {rel[0]:.3e}, over the {gen} "
-            f"decode steps {max(rel[1:]):.3e} (limit {SERVE_LOGIT_RTOL}); "
-            f"greedy choices agree {agree}/{batch * (gen + 1)}")
-        del srv, cache, plain, logits
+        if cfg.use_mla:
+            del logits
+            tok = torch.from_numpy(out[:, -1:]).to(dev)
+            cache = mdl.init_decode_state(cfg, batch, max_len,
+                                          dtype=torch.float32, device=dev)
+            cache = mdl.prefill(srv.params, {"tokens": prompts}, cfg,
+                                cache)[1]
+            profile_decode(torch, lambda i: mdl.decode_step(
+                srv.params, tok, prompt + i, cfg, cache), PROFILE_STEPS, tag)
+            del cache
+            mla_lossless_check(torch, srv.params, cfg, dev, tag)
+        else:
+            plain_path(torch, srv.params, cfg, dev, tag, prompts, out,
+                       logits, routes)
+            del logits
+        del srv
         torch.cuda.empty_cache()
         return {k: launches[k] for k in used}
     finally:
         remove_store(root)
+
+
+def plain_path(torch, params, cfg, dev, tag, prompts, out, logits, routes):
+    """The plain path (``use_kernels=False``) on the same weights:
+    prefill, then decode fed the kernel path's tokens; each step's
+    logits within ``SERVE_LOGIT_RTOL`` of its largest |logit|.  For a
+    MoE model the two paths' routing choices (``routes``: the kernel
+    path's, filled here with the plain path's) are compared first: a
+    top-k or capacity choice flipped at a near-tie is the one way the
+    paths can part by more than rounding."""
+    from repro_torch.models import model as mdl
+    batch, prompt = prompts.shape
+    gen = out.shape[1]
+    torch.cuda.reset_peak_memory_stats(dev)
+    cache = mdl.init_decode_state(cfg, batch, prompt + gen + 8,
+                                  dtype=torch.float32, device=dev)
+    rel, agree = [], 0
+    with record_routes(routes[1]):
+        t0 = time.perf_counter()
+        plain, cache = mdl.prefill(params, {"tokens": prompts}, cfg, cache,
+                                   use_kernels=False)
+        torch.cuda.synchronize(dev)
+        plain_s = time.perf_counter() - t0
+        for i in range(gen + 1):
+            if i:
+                plain, cache = mdl.decode_step(
+                    params, torch.from_numpy(out[:, i - 1:i]),
+                    prompt + i - 1, cfg, cache)
+            rel.append(float((logits[i] - plain).abs().max())
+                       / float(plain.abs().max()))
+            agree += int((logits[i].argmax(-1) == plain.argmax(-1)).sum())
+    if cfg.is_moe:
+        n_pre = cfg.n_layers - cfg.n_dense_layers      # one prefill
+        pre = route_flips(routes[0][:n_pre], routes[1][:n_pre])
+        dec = route_flips(routes[0][n_pre:], routes[1][n_pre:])
+        log(f"[{tag}] routing, kernel path against plain path: expert "
+            f"choice or drop differs for {pre[0]} of {pre[1]} "
+            f"token-layers in the prefill, {dec[0]} of {dec[1]} in decode")
+    worst = max(range(gen + 1), key=lambda i: rel[i])
+    if not rel[worst] <= SERVE_LOGIT_RTOL:
+        fail(f"[{tag}] step {worst}: kernel and plain logits differ by "
+             f"{rel[worst]:.3e} of the largest |logit| (limit "
+             f"{SERVE_LOGIT_RTOL})")
+    profile_decode(torch, lambda i: mdl.decode_step(
+        params, plain.argmax(-1)[:, None], prompt + gen + i, cfg,
+        cache), PROFILE_STEPS, tag)
+    log(f"[{tag}] plain path (use_kernels=False: the reference's dense "
+        f"attention, log-depth scan and chunked SSD) on the same "
+        f"weights: prefill {plain_s:.3f} s, peak card memory "
+        f"{torch.cuda.max_memory_allocated(dev)} B; max |kernel - "
+        f"plain| / max |logit| at prefill {rel[0]:.3e}, over the {gen} "
+        f"decode steps {max(rel[1:]):.3e} (limit {SERVE_LOGIT_RTOL}); "
+        f"greedy choices agree {agree}/{batch * (gen + 1)}")
+
+
+def mla_lossless_check(torch, params, cfg, dev, tag):
+    """[serve-mla] the reference's own invariant (its
+    ``tests/test_models.py``) on the served weights: at capacity E/k no
+    token is dropped, and prefill plus absorbed-decode logits equal the
+    expanded form's full forward over the prompt and the fed tokens
+    (within ``SERVE_LOGIT_RTOL`` of the step's largest |logit|).  One
+    prompt of ``MLA_CHECK_PROMPT`` tokens and ``MLA_CHECK_STEPS`` greedy
+    steps: at E/k every expert's capacity is the whole group, so the
+    gathered (E, C, d) tensor grows with the tokens."""
+    import numpy as np
+    from repro_torch.models import model as mdl
+    lcfg = cfg.scaled(moe_capacity_factor=cfg.n_experts / cfg.top_k)
+    n, steps = MLA_CHECK_PROMPT, MLA_CHECK_STEPS
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_real, (1, n)).astype(np.int64)).to(dev)
+    with torch.no_grad():
+        cache = mdl.init_decode_state(lcfg, 1, n + steps,
+                                      dtype=torch.float32, device=dev)
+        lg, cache = mdl.prefill(params, {"tokens": prompt}, lcfg, cache)
+        served, fed = [lg], []
+        for i in range(steps):
+            fed.append(served[-1].argmax(-1)[:, None])
+            lg, cache = mdl.decode_step(params, fed[-1], n + i, lcfg, cache)
+            served.append(lg)
+        del cache
+        full = mdl.forward_train(params, {"tokens": torch.cat(
+            [prompt] + fed, dim=1)}, lcfg)[0][0, n - 1:]
+    rel = [float((a[0] - full[i]).abs().max()) / float(full[i].abs().max())
+           for i, a in enumerate(served)]
+    if not all(bool(torch.isfinite(a).all()) for a in served) or \
+            not max(rel) <= SERVE_LOGIT_RTOL:
+        fail(f"[{tag}] absorbed decode against the expanded form at "
+             f"capacity E/k: {['%.3e' % r for r in rel]} of the largest "
+             f"|logit| (limit {SERVE_LOGIT_RTOL})")
+    log(f"[{tag}] lossless invariant (capacity E/k = "
+        f"{lcfg.moe_capacity_factor:g}, 1 x {n} prompt tokens, {steps} "
+        f"decode steps): max |served - full forward| / max |logit| at "
+        f"prefill {rel[0]:.3e}, over the decode steps {max(rel[1:]):.3e} "
+        f"(limit {SERVE_LOGIT_RTOL})")
 
 
 # ---------------------------------------------------------------------------
@@ -2454,13 +2636,23 @@ def main() -> int:
     from repro_torch.percipience import heat as H
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    t_last = [t_start]
+
+    def lap(phases):
+        """Log the wall the phases since the last lap took."""
+        now = time.perf_counter()
+        log(f"[time] {phases}: {now - t_last[0]:.1f} s")
+        t_last[0] = now
 
     smi = phase_card_and_build(torch, _ext)
+    lap("build")
     chk = phase_kernels(torch, K, col, dev)
     phase_heat(torch, H, chk, dev)
     phase_model_kernels(torch, KA, KR, KS, chk, dev)
     timing = phase_timing(torch, K, H, KA, KR, KS, col, dev)
+    lap("kernels, heat, model-kernels, timing")
     phase_heat_split(torch, H, dev)
+    lap("heat split")
     launches, per_query, main_values = phase_main_path(torch, K, col,
                                                        Clovis, dev)
     phase_percip_store(torch, H, K, dev)
@@ -2470,17 +2662,35 @@ def main() -> int:
         f"{launches['heat_scan']}")
     if launches["heat_scan"] <= 0:
         fail("heat_scan was not launched on the percipience path")
+    lap("main, percip")
     stream = phase_stream(torch, K, col, dev)
+    lap("stream")
     cluster = phase_cluster(torch, K, col, dev, main_values)
+    lap("cluster")
     served = phase_serving(torch, K, col, dev, main_values)
+    lap("serving, compaction")
     edge = phase_edge(torch, K, col, dev, smi)
+    lap("edge")
     launches.update(phase_serve(
         torch, _ext, get_config(SERVE_ARCH).scaled(dtype="float32"), dev))
+    lap("serve")
     launches.update(phase_serve(
         torch, _ext, get_config(SSM_ARCH).scaled(dtype="float32"), dev,
         tag="serve-ssm", expect_params=SSM_PARAMS, batch=SSM_BATCH,
         prompt=SSM_PROMPT, gen=SSM_GEN))
+    lap("serve-ssm")
+    launches.update(phase_serve(
+        torch, _ext, get_config(MOE_ARCH).scaled(dtype="float32"), dev,
+        tag="serve-moe", expect_params=MOE_PARAMS, batch=MOE_BATCH,
+        prompt=MOE_PROMPT, gen=MOE_GEN))
+    lap("serve-moe")
+    phase_serve(torch, _ext, get_config(MLA_ARCH).scaled(
+        dtype="float32", **MLA_CUT), dev, tag="serve-mla",
+        expect_params=MLA_PARAMS, batch=MLA_BATCH, prompt=MLA_PROMPT,
+        gen=MLA_GEN)
+    lap("serve-mla")
     trained = phase_train(torch, _ext, KS, dev, smi)
+    lap("train")
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -30,7 +30,10 @@ def make_grad_fn(cfg: ModelConfig, run: RunConfig):
             p.requires_grad_(True)
         loss, metrics = mdl.loss_fn(params, batch, cfg, remat=run.remat,
                                     use_kernels=True)
-        grads = torch.autograd.grad(loss, flat)
+        # deepseek's router bias only selects experts: no gradient reaches
+        # it, and its zeros are the reference's
+        grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                    materialize_grads=True)
         return unflatten(params, grads), {k: v.detach()
                                           for k, v in metrics.items()}
 

@@ -7,7 +7,8 @@ reference stacks the repeated layers for ``lax.scan`` when the pattern
 repeats more than once (its ``"scan"`` layout: one tree per pattern
 position, each leaf with a leading ``reps`` axis); the port keeps one
 dict per layer, so those are unstacked in layer order.  The
-``"unrolled"``, ``"extra"`` and ``"prefix"`` lists map one for one.
+``"unrolled"``, ``"extra"`` and ``"prefix"`` lists map one for one, and
+so does deepseek's ``"mtp"`` subtree (one block, never stacked).
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     """The reference's parameters (numpy leaves) as the port's tree."""
     check_config(cfg)
     dev = resolve_device(device)
-    extra = sorted(set(tree) - {"embed", "decoder", "ln_f", "lm_head"})
+    extra = sorted(set(tree) - {"embed", "decoder", "ln_f", "lm_head",
+                                "mtp"})
     if extra:
         raise NotImplementedError(f"parameters {extra} belong to families "
                                   f"not ported yet (ROADMAP A11)")

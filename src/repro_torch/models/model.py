@@ -2,12 +2,14 @@
 
   init_params(cfg, seed=0, device=None)        -> param tree
   forward_train(params, batch, cfg)            -> (logits, aux, hidden)
-  loss_fn(params, batch, cfg)                  -> (loss, metrics)
+  loss_fn(params, batch, cfg)                  -> (loss, metrics: ce, aux,
+                                                  mtp where the model has
+                                                  it, tokens, loss)
   make_batch(seed, cfg, batch, seq)            -> numpy tokens/labels
   init_decode_state(cfg, batch, max_len, ...)  -> cache tree
   prefill(params, batch, cfg, cache)           -> (last-token logits, cache)
   decode_step(params, token, position, cfg, cache) -> (logits, cache)
-  count_params_analytic(cfg)                   -> int
+  count_params_analytic(cfg, active_only)      -> int
 
 Parameters are nested dicts of tensors (``transformer`` holds one dict
 per layer).  ``init_params`` draws every weight on the target device from
@@ -31,11 +33,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import common
 from repro_torch.models.common import dense_init, embed_init
-from repro_torch.models.transformer import (apply_norm, check_config,
+from repro_torch.models.transformer import (apply_norm, block_forward,
+                                            check_config, init_block,
                                             init_norm, init_stack,
                                             init_stack_cache, stack_step,
                                             stack_forward_train)
 from repro_torch.tree import leaves
+
+MTP_LOSS_WEIGHT = 0.3
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -57,6 +62,16 @@ def _init(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                        **kw)
+    if cfg.mtp_depth > 0:
+        # DeepSeek multi-token prediction: its block is layer n_layers
+        params["mtp"] = {
+            "proj": dense_init(gen, (2 * cfg.d_model, cfg.d_model), **kw),
+            "norm_h": init_norm(cfg, **kw),
+            "norm_e": init_norm(cfg, **kw),
+            "block": init_block(gen, cfg, cfg.attn_pattern[0], cfg.n_layers,
+                                **kw),
+            "ln_f": init_norm(cfg, **kw),
+        }
     return params
 
 
@@ -79,10 +94,17 @@ def params_like(cfg: ModelConfig, dtype=torch.float32) -> Dict[str, Any]:
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False,
                           exclude_embed: bool = False) -> int:
-    """Parameter count from the port's own init on the ``meta`` device."""
+    """Parameter count from the port's own init on the ``meta`` device;
+    ``active_only`` leaves out the routed experts a token does not use
+    (E - k of them in every MoE layer, the MTP block's included)."""
     total = sum(t.numel() for t in leaves(params_like(cfg)))
     if exclude_embed:
         total -= cfg.vocab_size * cfg.d_model
+    if active_only and cfg.is_moe:
+        n_moe = cfg.n_layers - cfg.n_dense_layers + (1 if cfg.mtp_depth
+                                                     else 0)
+        per_expert = 3 * cfg.d_model * cfg.d_expert
+        total -= n_moe * per_expert * (cfg.n_experts - cfg.top_k)
     return total
 
 
@@ -131,13 +153,15 @@ def _tokens(batch: Dict, key: str, dev: torch.device) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def forward_train(params, batch: Dict, cfg: ModelConfig, *,
-                  remat: str = "none", use_kernels: bool = True
+                  remat: str = "none", use_kernels: bool = True,
+                  moe_dense_oracle: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (logits f32 (b, s, vocab), aux loss, final hidden).
     ``use_kernels`` runs the attention and the scans through B5, B6 and
     B7 (their plain versions on the CPU), with gradients on the card
     through ``kernels.grad``; False takes the reference's dense
-    attention, log-depth scan and chunked SSD."""
+    attention, log-depth scan and chunked SSD.  ``moe_dense_oracle``
+    runs every MoE layer through the dense oracle."""
     _check_batch(batch)
     dev = params["embed"].device
     tokens = _tokens(batch, "tokens", dev)
@@ -147,7 +171,8 @@ def forward_train(params, batch: Dict, cfg: ModelConfig, *,
         .expand(b, s)
     x, aux = stack_forward_train(params["decoder"], x, cfg,
                                  positions=positions, remat=remat,
-                                 use_kernels=use_kernels)
+                                 use_kernels=use_kernels,
+                                 moe_dense_oracle=moe_dense_oracle)
     return _logits(params, x, cfg), aux, x
 
 
@@ -162,14 +187,47 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor
     return (nll * mask).sum() / denom, denom
 
 
+def _mtp_loss(params, batch: Dict, cfg: ModelConfig, hidden: torch.Tensor,
+              use_kernels: bool) -> torch.Tensor:
+    """DeepSeek multi-token prediction: predict token t+2 from the
+    normed hidden state at t joined with the embedding of token t+1."""
+    dev = hidden.device
+    tokens = _tokens(batch, "tokens", dev)
+    b, s = tokens.shape
+    p = params["mtp"]
+    h = apply_norm(p["norm_h"], hidden[:, :-1], cfg)
+    e = apply_norm(p["norm_e"], _embed(params, tokens[:, 1:], cfg,
+                                       hidden.dtype), cfg)
+    merged = torch.matmul(torch.cat([h, e], dim=-1),
+                          p["proj"].to(hidden.dtype))
+    positions = torch.arange(s - 1, dtype=torch.int32, device=dev)[None] \
+        .expand(b, s - 1)
+    merged, _, _ = block_forward(p["block"], merged, cfg,
+                                 cfg.attn_pattern[0], mode="train",
+                                 positions=positions,
+                                 use_kernels=use_kernels)
+    logits = _logits({**params, "ln_f": p["ln_f"]}, merged, cfg)
+    # the label at position t+1 is token t+2
+    loss, _ = _ce(logits, _tokens(batch, "labels", dev)[:, 1:])
+    return loss
+
+
 def loss_fn(params, batch: Dict, cfg: ModelConfig, *, remat: str = "none",
             use_kernels: bool = True) -> Tuple[torch.Tensor, Dict]:
-    """-> (loss, {"ce", "aux", "tokens", "loss"}), the reference's."""
-    logits, aux, _ = forward_train(params, batch, cfg, remat=remat,
-                                   use_kernels=use_kernels)
+    """-> (loss, {"ce", "aux", "tokens", "loss"} + "mtp" where the model
+    predicts two tokens), the reference's: ce + router_aux_coef * aux
+    + MTP_LOSS_WEIGHT * mtp."""
+    logits, aux, hidden = forward_train(params, batch, cfg, remat=remat,
+                                        use_kernels=use_kernels)
     ce, n_tok = _ce(logits, _tokens(batch, "labels", logits.device))
     loss = ce + cfg.router_aux_coef * aux
-    return loss, {"ce": ce, "aux": aux, "tokens": n_tok, "loss": loss}
+    metrics = {"ce": ce, "aux": aux, "tokens": n_tok}
+    if cfg.mtp_depth > 0:
+        mtp = _mtp_loss(params, batch, cfg, hidden, use_kernels)
+        loss = loss + MTP_LOSS_WEIGHT * mtp
+        metrics["mtp"] = mtp
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def make_batch(seed: int, cfg: ModelConfig, batch: int, seq: int

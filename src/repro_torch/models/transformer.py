@@ -1,25 +1,28 @@
 """Decoder stacks over the block zoo (the port of
 ``repro.models.transformer``), for the kinds the port serves: global and
-local (sliding-window) attention, the RG-LRU block and the Mamba2 SSD
-block, in modes train, prefill and decode.
+local (sliding-window) attention or MLA, the RG-LRU block and the Mamba2
+SSD block, each followed (SSD aside) by a gated MLP or a MoE block, in
+modes train, prefill and decode.
 
 The reference groups layers into repetitions of the architecture's
 ``attn_pattern`` and scans them over stacked parameters ("scan" layout);
 PyTorch runs eagerly, so the port keeps one parameter dict per layer in a
 list and walks it with a Python loop.  ``stack_plan`` still splits the
 layers into (prefix, reps x pattern, extra), so the reference's
-parameters map onto the port's one for one (``models.convert``).
+parameters map onto the port's one for one (``models.convert``):
+deepseek's dense first layers are the prefix, its MoE layers the body.
 
-The train mode (``stack_forward_train``) runs the same blocks over the
-whole sequence with no cache.  Its ``remat`` ``"dots"`` and ``"full"``
-both recompute each whole block in the backward
-(``torch.utils.checkpoint``): PyTorch has no counterpart of XLA's
-save-the-dots policy, so ``"dots"`` costs the memory of ``"full"`` and
-gives the same numbers (ROADMAP C14).
+``block_forward`` returns (x, aux loss, new cache), the reference's
+convention: the aux loss is the MoE router's load-balance loss (0.0 for
+the other blocks), which ``stack_forward_train`` sums over layers.
+Its ``remat`` ``"dots"`` and ``"full"`` both recompute each whole block
+in the backward (``torch.utils.checkpoint``): PyTorch has no counterpart
+of XLA's save-the-dots policy, so ``"dots"`` costs the memory of
+``"full"`` and gives the same numbers (ROADMAP C14).
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: the cross and encoder/encdec kinds, MLA, MoE, multi-token
-prediction and the audio family's LayerNorm MLP (A11).
+item: the cross and encoder/encdec kinds and the audio family's
+LayerNorm MLP (A11).
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
                                       ModelConfig)
 from repro_torch.models import attention as attn
-from repro_torch.models import common, rglru, ssm
+from repro_torch.models import common, mla, moe, rglru, ssm
 from repro_torch.models.common import dense_init
 
 PORTED_KINDS = (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD)
@@ -47,16 +50,10 @@ def check_config(cfg: ModelConfig):
     bad = sorted(set(cfg.attn_pattern) - set(PORTED_KINDS))
     if bad:
         raise not_ported(f"block kind(s) {bad} ({cfg.name})")
-    if cfg.is_moe:
-        raise not_ported(f"MoE ({cfg.name})")
-    if cfg.use_mla:
-        raise not_ported(f"MLA ({cfg.name})")
     if cfg.is_encoder_decoder or cfg.cross_attn_period:
         raise not_ported(f"encoder-decoder / cross attention ({cfg.name})")
     if cfg.family == "audio":
         raise not_ported(f"the LayerNorm MLP of the audio family ({cfg.name})")
-    if cfg.mtp_depth:
-        raise not_ported(f"multi-token prediction ({cfg.name})")
     if cfg.pos_embedding not in ("rope", "none"):
         raise not_ported(f"{cfg.pos_embedding} positions ({cfg.name})")
 
@@ -98,11 +95,22 @@ def mlp_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # Block init / forward
 # --------------------------------------------------------------------------
 
-def init_block(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
-               device=None) -> Dict:
+def _layer_dff(cfg: ModelConfig, layer_idx: int) -> Tuple[bool, int]:
+    """-> (is_moe_layer, d_ff) for decoder layer ``layer_idx``."""
+    if cfg.is_moe and layer_idx >= cfg.n_dense_layers:
+        return True, 0
+    if cfg.is_moe:
+        return False, cfg.dense_d_ff or cfg.d_ff
+    return False, cfg.d_ff
+
+
+def init_block(gen, cfg: ModelConfig, kind: str, layer_idx: int,
+               dtype=torch.float32, device=None) -> Dict:
     kw = dict(dtype=dtype, device=device)
     p: Dict[str, Any] = {"ln1": init_norm(cfg, **kw)}
-    if kind in (GLOBAL_ATTN, LOCAL_ATTN):
+    if kind in (GLOBAL_ATTN, LOCAL_ATTN) and cfg.use_mla:
+        p["mixer"] = mla.init_mla(gen, cfg, **kw)
+    elif kind in (GLOBAL_ATTN, LOCAL_ATTN):
         p["mixer"] = attn.init_attention(gen, cfg, **kw)
     elif kind == RGLRU:
         p["mixer"] = rglru.init_rglru(gen, cfg, **kw)
@@ -112,7 +120,11 @@ def init_block(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
         raise not_ported(f"block kind {kind!r}")
     if kind != SSD:      # mamba2 blocks have no MLP
         p["ln2"] = init_norm(cfg, **kw)
-        p["mlp"] = init_mlp(gen, cfg, cfg.d_ff, **kw)
+        is_moe, dff = _layer_dff(cfg, layer_idx)
+        if is_moe:
+            p["moe"] = moe.init_moe(gen, cfg, **kw)
+        else:
+            p["mlp"] = init_mlp(gen, cfg, dff, **kw)
     if cfg.sandwich_norm:
         p["ln1_post"] = init_norm(cfg, **kw)
         if "ln2" in p:
@@ -123,19 +135,33 @@ def init_block(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
 def block_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                   mode: str, positions: Optional[torch.Tensor] = None,
                   position: Optional[int] = None,
-                  cache: Optional[Dict] = None, use_kernels: bool = True
-                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
+                  cache: Optional[Dict] = None, use_kernels: bool = True,
+                  moe_dense_oracle: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """One block in mode ``train``, ``prefill`` or ``decode``.  Returns
-    (x, new_cache); train keeps no cache (None).  ``use_kernels`` picks
-    B5/B6/B7 for the attention and scans of train and prefill (on the
-    card they carry their gradients: ``kernels.grad``); decode runs plain
-    torch either way."""
+    (x, aux loss, new_cache): the aux loss is an f32 scalar tensor from
+    a MoE block and 0.0 from the others (no allocation, no launch per
+    block); train keeps no cache (None).
+    ``use_kernels`` picks B5/B6/B7 for the attention and scans of train
+    and prefill (on the card they carry their gradients:
+    ``kernels.grad``); decode and MLA run plain torch either way.
+    ``moe_dense_oracle`` runs a MoE layer as ``moe.moe_block_dense``."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown block mode {mode!r}")
+    aux = 0.0
     h = apply_norm(p["ln1"], x, cfg)
     window = cfg.local_window if kind == LOCAL_ATTN else 0
     new_cache = None
-    if kind in (GLOBAL_ATTN, LOCAL_ATTN):
+    if kind in (GLOBAL_ATTN, LOCAL_ATTN) and cfg.use_mla:
+        if mode == "train":
+            mix = mla.mla_attention(p["mixer"], h, positions, cfg)
+        elif mode == "prefill":
+            mix, new_cache = mla.mla_prefill(p["mixer"], h, positions, cfg,
+                                             cache)
+        else:
+            mix, new_cache = mla.mla_decode(p["mixer"], h, position, cfg,
+                                            cache)
+    elif kind in (GLOBAL_ATTN, LOCAL_ATTN):
         if mode == "train":
             mix = attn.self_attention(p["mixer"], h, positions, cfg,
                                       window=window, use_kernels=use_kernels)
@@ -170,15 +196,22 @@ def block_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         mix = apply_norm(p["ln1_post"], mix, cfg)
     x = x + mix
     if kind == SSD:      # no MLP half
-        return x, new_cache
-    y = mlp_forward(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
+        return x, aux, new_cache
+    h2 = apply_norm(p["ln2"], x, cfg)
+    if "moe" in p:
+        fn = moe.moe_block_dense if moe_dense_oracle else moe.moe_block
+        y, aux = fn(p["moe"], h2, cfg)
+    else:
+        y = mlp_forward(p["mlp"], h2, cfg)
     if cfg.sandwich_norm:
         y = apply_norm(p["ln2_post"], y, cfg)
-    return x + y, new_cache
+    return x + y, aux, new_cache
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype=torch.bfloat16, device=None) -> Dict:
+    if kind == GLOBAL_ATTN and cfg.use_mla:
+        return mla.init_mla_cache(cfg, batch, max_len, dtype, device)
     if kind in (GLOBAL_ATTN, LOCAL_ATTN):
         return attn.init_cache(cfg, batch, max_len, kind, dtype, device)
     if kind == RGLRU:
@@ -206,7 +239,8 @@ def stack_plan(cfg: ModelConfig) -> Tuple[int, int, Tuple[str, ...],
 
 
 def stack_kinds(cfg: ModelConfig) -> Dict[str, List[str]]:
-    """Block kind of every layer of each part of the stack."""
+    """Block kind of every layer of each part of the stack, in layer
+    order (prefix, then the body, then the extras)."""
     prefix, reps, pattern, extra = stack_plan(cfg)
     return {"prefix": [pattern[i % len(pattern)] for i in range(prefix)],
             "unrolled": [pattern[i % len(pattern)]
@@ -217,9 +251,15 @@ def stack_kinds(cfg: ModelConfig) -> Dict[str, List[str]]:
 def init_stack(gen, cfg: ModelConfig, dtype=torch.float32,
                device=None) -> Dict[str, List[Dict]]:
     """One parameter dict per decoder layer: prefix, body, extras."""
-    return {part: [init_block(gen, cfg, kind, dtype, device)
-                   for kind in kinds]
-            for part, kinds in stack_kinds(cfg).items()}
+    out: Dict[str, List[Dict]] = {}
+    layer = 0
+    for part, kinds in stack_kinds(cfg).items():
+        out[part] = []
+        for kind in kinds:
+            out[part].append(init_block(gen, cfg, kind, layer, dtype,
+                                        device))
+            layer += 1
+    return out
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -232,36 +272,40 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def stack_forward_train(stack: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                         positions: torch.Tensor, remat: str = "none",
-                        use_kernels: bool = True
+                        use_kernels: bool = True,
+                        moe_dense_oracle: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The full-sequence walk over every layer -> (x, aux loss).  The
-    ported kinds have no router, so the aux loss is a zero, as the
-    reference's is for them.  ``remat`` other than ``"none"`` recomputes
-    each block in the backward (see the module's docstring)."""
+    """The full-sequence walk over every layer -> (x, aux loss summed
+    over the layers).  ``remat`` other than ``"none"`` recomputes each
+    block in the backward (see the module's docstring)."""
     if remat not in ("none", "dots", "full"):
         raise ValueError(f"unknown remat policy {remat!r}")
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for part, kinds in stack_kinds(cfg).items():
         for bp, kind in zip(stack[part], kinds):
             def block(x, bp=bp, kind=kind):
                 return block_forward(bp, x, cfg, kind, mode="train",
                                      positions=positions,
-                                     use_kernels=use_kernels)[0]
-            x = (block(x) if remat == "none"
-                 else checkpoint(block, x, use_reentrant=False))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+                                     use_kernels=use_kernels,
+                                     moe_dense_oracle=moe_dense_oracle)[:2]
+            x, aux = (block(x) if remat == "none"
+                      else checkpoint(block, x, use_reentrant=False))
+            aux_total = aux_total + aux
+    return x, aux_total
 
 
 def stack_step(stack: Dict, caches: Dict, x: torch.Tensor,
                cfg: ModelConfig, *, mode: str, positions=None,
                position=None, use_kernels: bool = True
                ) -> Tuple[torch.Tensor, Dict]:
-    """The prefill/decode walk over every layer, threading caches."""
+    """The prefill/decode walk over every layer, threading caches (the
+    aux loss is dropped, as the reference drops it)."""
     new_caches: Dict[str, List[Dict]] = {}
     for part, kinds in stack_kinds(cfg).items():
         new_caches[part] = []
         for bp, kind, cache in zip(stack[part], kinds, caches[part]):
-            x, nc = block_forward(bp, x, cfg, kind, mode=mode,
-                                  positions=positions, position=position,
-                                  cache=cache, use_kernels=use_kernels)
+            x, _, nc = block_forward(bp, x, cfg, kind, mode=mode,
+                                     positions=positions, position=position,
+                                     cache=cache, use_kernels=use_kernels)
             new_caches[part].append(nc)
     return x, new_caches

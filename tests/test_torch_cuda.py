@@ -388,7 +388,9 @@ ATTN_CASES = [(4, 16, 1, 4000, 4000, 256, True, 2048, 0.0),
               # window's edge inside a key tile
               (1, 16, 1, 1000, 1000, 256, True, 333, 30.0),
               (2, 4, 2, 77, 1001, 256, False, 0, 30.0),
-              (1, 8, 2, 250, 250, 256, True, 17, 0.0)]
+              (1, 8, 2, 250, 250, 256, True, 17, 0.0),
+              # qwen2-moe-a2.7b's prefill: MHA, hd 128, causal, no window
+              (4, 16, 16, 4000, 4000, 128, True, 0, 0.0)]
 
 
 @pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal,window,softcap", ATTN_CASES)
@@ -704,3 +706,104 @@ def test_mamba2_train_step_on_cuda_matches_plain_path(dev, tmp_path):
     for k, p in zip(gk, gp):
         assert float((k - p).abs().max()) <= GRAD_RTOL * float(
             p.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the MoE block on the card: the same selections and outputs as its CPU
+# run (activations within 1e-4), ties to the lower index, and a combine
+# that gives the same bits on every run
+# ---------------------------------------------------------------------------
+
+def _moe_case(arch, **over):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    cfg = get_smoke_config(arch).scaled(dtype="float32", **over)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg,
+                     device=torch.device("cpu"))
+    if "router_bias" in p:
+        p["router_bias"] = torch.linspace(-0.05, 0.05, cfg.n_experts)
+    return cfg, p
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("b,s", [(2, 37), (4, 1)])
+def test_moe_block_on_cuda_matches_cpu(dev, arch, b, s):
+    from repro_torch.models import moe
+    cfg, p = _moe_case(arch)
+    x = torch.from_numpy(np.random.default_rng(b * s).standard_normal(
+        (b, s, cfg.d_model)).astype(np.float32))
+    want, waux = moe.moe_block(p, x, cfg)
+    pd = {k: v.to(dev) for k, v in p.items()}
+    got, aux = moe.moe_block(pd, x.to(dev), cfg)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    assert abs(float(aux) - float(waux)) <= 1e-5 * abs(float(waux))
+    g, gs = (b, s) if s > 1 else (1, b)
+    cap = moe.capacity(cfg, gs)
+    for a, c in zip(moe._route(pd, x.to(dev).reshape(g, gs, -1), cfg, cap),
+                    moe._route(p, x.reshape(g, gs, -1), cfg, cap)):
+        if a.dtype == torch.long:
+            assert torch.equal(a.cpu(), c)
+
+
+def test_moe_ties_on_cuda_go_to_the_lower_index(dev):
+    """Identical token rows and two identical router columns tie exactly:
+    the card keeps the lower token (and expert) index, as the CPU and
+    jax.lax.top_k do."""
+    from repro_torch.models import moe
+    cfg, p = _moe_case("qwen2-moe-a2.7b", moe_capacity_factor=0.5)
+    p["router"][:, 3] = p["router"][:, 1]
+    row = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        cfg.d_model).astype(np.float32))
+    xg = row.expand(2, 600, cfg.d_model).contiguous()
+    cap = moe.capacity(cfg, 600)
+    got = moe._route({k: v.to(dev) for k, v in p.items()}, xg.to(dev), cfg,
+                     cap)
+    want = moe._route(p, xg, cfg, cap)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(want[0], torch.arange(cap).expand_as(want[0]))
+    sel = moe.router_scores(p, row[None], cfg)[1]
+    assert torch.equal(moe.topk_indices(sel.to(dev), 8).cpu(),
+                       moe.topk_indices(sel, 8))
+
+
+def test_moe_combine_gives_the_same_bits_every_run(dev):
+    from repro_torch.models import moe
+    cfg, p = _moe_case("qwen2-moe-a2.7b", d_model=256, n_experts=60,
+                       top_k=4, d_expert=128)
+    pd = {k: v.to(dev) for k, v in p.items()}
+    x = torch.randn((4, 512, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev)
+    first, _ = moe.moe_block(pd, x, cfg)
+    for _ in range(5):
+        again, _ = moe.moe_block(pd, x, cfg)
+        assert torch.equal(again, first)
+
+
+def test_moe_server_kernel_path_matches_plain_path_on_cuda(dev, tmp_path):
+    """A narrow qwen2-moe (head_dim 64, which B5 takes) served on the
+    card at capacity 1.25: B5 once per layer in the prefill, the plain
+    path's tokens, logits within 1e-3 of the step's largest |logit|."""
+    from repro_torch import _ext
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import model as mdl
+    cfg = get_smoke_config("qwen2-moe-a2.7b").scaled(
+        dtype="float32", n_layers=3, head_dim=64, d_model=128)
+    params = mdl.init_params(cfg, device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_real, (3, 45)).astype(np.int32)
+    runs = []
+    for use_kernels in (True, False):
+        srv = Server(cfg, tmp_path / str(use_kernels), device=dev,
+                     use_kernels=use_kernels, max_len=64, params=params)
+        _ext.reset_launch_counts()
+        runs.append(srv.generate(prompts, 8, keep_logits=True))
+        runs[-1][1]["launches"] = dict(_ext.LAUNCHES)
+        srv.close()
+    (out_k, st_k), (out_p, st_p) = runs
+    assert st_k["launches"]["flash_attention"] == 3
+    assert st_p["launches"]["flash_attention"] == 0
+    np.testing.assert_array_equal(out_k, out_p)
+    for a, b in zip(st_k["logits"], st_p["logits"]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())

@@ -66,6 +66,7 @@ print(" ".join(names))
                      "repro_torch.models.common",
                      "repro_torch.models.attention",
                      "repro_torch.models.rglru",
+                     "repro_torch.models.moe", "repro_torch.models.mla",
                      "repro_torch.models.transformer",
                      "repro_torch.models.model",
                      "repro_torch.models.convert", "repro_torch.launch",

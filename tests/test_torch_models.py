@@ -249,25 +249,39 @@ def test_rglru_block_prefill_decode(use_kernels):
 def _jax_serve(jcfg, params, tokens, gen_tokens):
     """Reference prefill + decode logits, fed ``gen_tokens``."""
     b, s = tokens.shape
+    prefill = jax.jit(lambda p, b, c: jmdl.prefill(p, b, jcfg, c))
+    decode = jax.jit(lambda p, t, i, c: jmdl.decode_step(p, t, i, jcfg, c))
     cache = jmdl.init_decode_state(jcfg, b, s + 16, dtype=jnp.float32)
-    logits, cache = jmdl.prefill(params, {"tokens": jnp.asarray(tokens)},
-                                 jcfg, cache)
+    logits, cache = prefill(params, {"tokens": jnp.asarray(tokens)}, cache)
     out = [np.asarray(logits)]
     for i, t in enumerate(gen_tokens):
-        logits, cache = jmdl.decode_step(params, jnp.asarray(t[:, None]),
-                                         jnp.int32(s + i), jcfg, cache)
+        logits, cache = decode(params, jnp.asarray(t[:, None]),
+                               jnp.int32(s + i), cache)
         out.append(np.asarray(logits))
     return out
 
 
-@pytest.mark.parametrize("n_layers,layout", [(4, "unrolled"), (7, "scan")])
+@pytest.mark.parametrize("arch,n_layers,layout", [
+    pytest.param(ARCH, 4, "unrolled", id="4-unrolled"),
+    pytest.param(ARCH, 7, "scan", id="7-scan"),
+    pytest.param("qwen2-moe-a2.7b", 1, "unrolled", id="qwen2-moe-1-unrolled"),
+    pytest.param("qwen2-moe-a2.7b", 3, "scan", id="qwen2-moe-3-scan"),
+    pytest.param("deepseek-v3-671b", 2, "unrolled",
+                 id="deepseek-v3-2-unrolled"),
+    pytest.param("deepseek-v3-671b", 3, "scan", id="deepseek-v3-3-scan")])
 @pytest.mark.parametrize("use_kernels", [True, False])
-def test_prefill_and_decode_logits_match_reference(n_layers, layout,
+def test_prefill_and_decode_logits_match_reference(arch, n_layers, layout,
                                                    use_kernels):
     """recurrentgemma smoke, prompt 21 > window 8: 4 layers is one
     pattern repeat plus an extra layer (unrolled layout); 7 layers is two
-    repeats (the reference's stacked scan layout) plus an extra layer."""
-    jcfg, cfg = _cfgs(n_layers=n_layers)
+    repeats (the reference's stacked scan layout) plus an extra layer.
+    qwen2-moe and deepseek-v3 smoke at their own capacity factor 1.25
+    (prefill drops tokens over capacity, decode routes the batch as one
+    group at capacity 1): 1 and 3 MoE layers; deepseek's dense first
+    layer (the prefix) plus 1 or 2 MoE layers with MLA."""
+    jcfg, cfg = (_cfgs(n_layers=n_layers) if arch == ARCH else (
+        jget_smoke(arch).scaled(n_layers=n_layers, dtype="float32"),
+        get_smoke_config(arch).scaled(n_layers=n_layers, dtype="float32")))
     jparams = jmdl.init_params(jax.random.key(0), jcfg)
     assert layout in jparams["decoder"]
     params = convert.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
@@ -310,9 +324,8 @@ def test_count_params_full_config():
 
 
 def test_unported_kinds_raise():
-    for arch in ("deepseek-v3-671b", "whisper-large-v3",
-                 "llama-3.2-vision-90b", "qwen2-moe-a2.7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for arch in ("whisper-large-v3", "llama-3.2-vision-90b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
             mdl.init_params(get_smoke_config(arch), device="cpu")
     jcfg, cfg = _cfgs()
     params = mdl.init_params(cfg, device="cpu")
@@ -326,7 +339,8 @@ def test_unported_kinds_raise():
                              "image_embeds": None}, cfg)
     # the train mode of the ported kinds runs (tests/test_torch_train.py
     # holds it to the reference)
-    out, cache = tfm.block_forward(params["decoder"]["unrolled"][0],
-                                   torch.zeros(1, 2, cfg.d_model), cfg,
-                                   "rglru", mode="train")
+    out, aux, cache = tfm.block_forward(params["decoder"]["unrolled"][0],
+                                        torch.zeros(1, 2, cfg.d_model), cfg,
+                                        "rglru", mode="train")
     assert out.shape == (1, 2, cfg.d_model) and cache is None
+    assert float(aux) == 0.0

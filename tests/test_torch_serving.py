@@ -8,6 +8,7 @@ side by side and must agree.  ``QueryService`` over the port
 same requests with the reference's values, on one node and on a
 cluster; int results byte for byte.
 """
+import itertools
 import json
 import threading
 import time
@@ -315,7 +316,13 @@ def _serve(pkg, cl, c, L, **kw):
 
 
 @pytest.mark.parametrize("where", ["one node", "cluster"])
-def test_query_service_matches_reference(tmp_path, where):
+def test_query_service_matches_reference(tmp_path, monkeypatch, where):
+    # a service's trace tag numbers it in its process: start both
+    # packages' counters at 1, whatever services earlier tests made
+    import repro.serving.service as jservice
+    import repro_torch.serving.service as pservice
+    for mod in (jservice, pservice):
+        monkeypatch.setattr(mod, "_SERVICE_SEQ", itertools.count(1))
     if where == "one node":
         jc = JClovis(tmp_path / "ref", addb=JAddb(), devices_per_tier=3)
         pc = Clovis(tmp_path / "port", addb=Addb(), devices_per_tier=3,

@@ -1,14 +1,15 @@
 """The port's training stack against the reference, on the CPU: the train
-mode of the models, ``loss_fn`` and its gradient, AdamW, gradient
-compression, the data pipeline, the steps and the ``Trainer``.
+mode of the models, ``loss_fn`` and its gradient (the MoE aux loss and
+deepseek's MTP loss included), AdamW, gradient compression, the data
+pipeline, the steps and the ``Trainer``.
 
 Weights are the reference's, carried over with ``params_from_jax``;
 batches and noise are made with numpy (or handed from the reference, for
 the compression noise).  Tolerances, f32 throughout with sums in another
 order: the loss within 1e-5 relative; each gradient leaf within 1e-4 of
 that leaf's largest |g|; one AdamW update and the schedule within 1e-6;
-the first Trainer losses within 1e-3 relative (they compound five
-updates); microbatch accumulation within 1e-5 of the leaf's largest |g|.
+the ce, aux and MTP terms each within 1e-5 relative; the first Trainer
+losses within 1e-3 relative (they compound five updates); microbatch accumulation within 1e-5 of the leaf's largest |g|.
 """
 import os
 import signal
@@ -49,7 +50,8 @@ from repro_torch.optim import (AdamWState, adamw_update, clip_by_global_norm,
 from repro_torch.optim.adamw import _decay_mask
 from repro_torch.tree import leaves, tree_map
 
-ARCHS = ("mamba2-130m", "recurrentgemma-9b", "qwen2.5-32b")
+ARCHS = ("mamba2-130m", "recurrentgemma-9b", "qwen2.5-32b",
+         "qwen2-moe-a2.7b", "deepseek-v3-671b")
 CPU = "cpu"
 
 
@@ -70,7 +72,9 @@ def _port_grads(params, batch, cfg, **kw):
     for t in flat:
         t.requires_grad_(True)
     loss, metrics = mdl.loss_fn(params, batch, cfg, **kw)
-    return loss, metrics, torch.autograd.grad(loss, flat)
+    # deepseek's router bias gets no gradient (zeros, as in the reference)
+    return loss, metrics, torch.autograd.grad(loss, flat, allow_unused=True,
+                                              materialize_grads=True)
 
 
 def _leaf_close(got, want, rtol):
@@ -89,13 +93,18 @@ def test_loss_and_gradient_match_the_reference(arch):
     jcfg, cfg = _cfgs(arch)
     jp, params = _ref_params(jcfg, cfg)
     batch = mdl.make_batch(1, cfg, 2, 24)
-    (jl, jm), jg = jax.value_and_grad(
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
         lambda p: jmdl.loss_fn(p, {k: jnp.asarray(v) for k, v in
-                                   batch.items()}, jcfg), has_aux=True)(jp)
+                                   batch.items()}, jcfg), has_aux=True))(jp)
     loss, metrics, grads = _port_grads(params, batch, cfg)
     assert abs(loss.item() - float(jl)) <= 1e-5 * abs(float(jl))
     assert float(metrics["tokens"]) == float(jm["tokens"]) == 2 * 23
-    assert float(metrics["aux"]) == float(jm["aux"]) == 0.0
+    assert set(metrics) == set(jm)
+    for name in set(jm) - {"tokens", "loss"}:     # ce, aux and mtp
+        assert abs(metrics[name].item() - float(jm[name])) <= \
+            1e-5 * abs(float(jm[name]))
+    assert (metrics["aux"].item() > 0) == cfg.is_moe
+    assert ("mtp" in metrics) == (cfg.mtp_depth > 0)
     want = leaves(convert.params_from_jax(jax.tree.map(np.asarray, jg), cfg,
                                           device=CPU))
     assert len(grads) == len(want)
@@ -133,10 +142,10 @@ def test_train_mode_of_each_ported_kind_matches_the_reference():
             want, aux, _ = jtfm.block_forward(
                 jblock, jnp.asarray(x), jcfg, kind, mode="train",
                 positions=jnp.asarray(pos))
-            got, cache = tfm.block_forward(
+            got, got_aux, cache = tfm.block_forward(
                 layers[kind], torch.from_numpy(x), cfg, kind, mode="train",
                 positions=torch.from_numpy(pos.copy()))
-            assert cache is None and float(aux) == 0.0
+            assert cache is None and float(aux) == float(got_aux) == 0.0
             np.testing.assert_allclose(got.detach().numpy(),
                                        np.asarray(want), atol=1e-4,
                                        rtol=1e-4)
@@ -454,7 +463,8 @@ def test_addb_telemetry_collected(tmp_path):
     assert rep.get("get", {}).get("bytes", 0) > 0
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2.5-32b"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2.5-32b",
+                                  "qwen2-moe-a2.7b", "deepseek-v3-671b"])
 def test_first_losses_match_the_reference_trainer(tmp_path, arch):
     jcfg, cfg = _cfgs(arch)
     kw = dict(arch=arch, total_steps=30, warmup_steps=3,
