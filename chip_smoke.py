@@ -21,8 +21,9 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
    repeat bit for bit at 1 and 32 segments (a table a thread).  Each kernel is also timed on the
    device (CUDA events, the card kept busy while the host enqueues) at
    the shape its path gives it, beside its bound, its plain version and,
-   where one exists, one PyTorch library call; one ``heat_scores`` call
-   at 262,144 objects is split into its host and device parts.
+   where one exists, one PyTorch library call (B5 also at every served
+   shape and, with B6, on bf16 inputs); one ``heat_scores`` call at
+   262,144 objects is split into its host and device parts.
 3. The main path at full size: a store of 16 partitions x 4,194,304
    rows x 4 int32 columns (1 GiB, made from torch.Generator seed 0) and
    queries (a)-(d) through ``Clovis.analytics()``; each result must
@@ -59,8 +60,10 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
    prefill must launch B5 12 and B7 26 times, its logits must agree
    with the ``use_kernels=False`` path on the same weights at prefill
    and at every decode step (within ``SERVE_LOGIT_RTOL`` of the step's
-   largest |logit|), and the token log must read back from Clovis; two
-   more decode steps run under torch.profiler (device busy share).
+   largest |logit|) with equal greedy tokens (in f32, for every model
+   but the MoE ones: C19), and the token log must read back from
+   Clovis; two more decode steps run under torch.profiler (device busy
+   share).
    ``[model-kernels]`` also holds B6, the Mamba2 SSD scan, against its
    plain version at the serving shape and at edge shapes (y and the
    final state within ``SSD_RTOL`` of each (batch, head)'s largest
@@ -86,6 +89,31 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
    E/k (lossless), 1 prompt of 256 tokens, prefill plus 8 absorbed
    decode steps give the expanded form's full-forward logits over the
    prompt and the fed tokens (within ``SERVE_LOGIT_RTOL``).
+   ``[serve-whisper]``: whisper-large-v3 at full width and depth
+   (1,392,056,320 f32 parameters) serves 4 prompts of 384 tokens and 32
+   greedy tokens the same way, with 4 x 1,500 frames drawn after the
+   prompts (the reference's stub frontend); its decoder is 32 ``global``
+   blocks that never read the encoder (as in the reference), so its
+   prefill launches B5 32 times, and the encoder is driven on its own
+   over the frames (32 non-causal B5 launches) against its plain path;
+   greedy tokens must be equal.  ``[serve-vision]``: llama-3.2-vision at
+   full width cut to 10 layers (8 global, 2 gated cross;
+   10,657,899,012 f32 parameters), both gates of each cross layer set
+   to 0.5 after the seeded init (at 0 a cross layer is the identity),
+   4 x 1,601 image embeddings, 4 prompts of 1,024 tokens and 32 greedy
+   tokens: B5 10 times a prefill (GQA self attention and sq != sk cross
+   attention), the same checks, and other image embeddings must move
+   the prefill logits by more than ``MEMORY_MOVE_RTOL``.
+   ``[serve-bf16]``: mamba2-130m (B6) and whisper-large-v3 (B5) at full
+   width in their configs' default bf16: every block (and whisper's
+   encoder blocks) run through the kernels and through the plain path
+   on the same bf16 input, within ``BF16_LAYER_RTOL`` of the block's
+   largest |value|; and the kernel path's logits (and encoder output)
+   no farther from the plain f32 path on the same weights than the
+   plain bf16 path's, by more than ``BF16_F32_MARGIN`` of that distance
+   (|a - b| / |b|, averaged over the steps).  B5 and B6 are also held
+   to their plain versions on bf16 inputs at these shapes in
+   ``[model-kernels]``.
 7. ``[edge]``: ``benchmarks/bench_edge.py``'s hostile schedule (seed
    2026, 4 producers, 1,200 events, 3 crashes: duplicates, reordering,
    poison, a torn tail) through the port's ``EdgeIngestor`` into a
@@ -154,6 +182,7 @@ DELTAS, DELTA_ROWS = 256, 4096  # [compaction]: 64 KiB deltas, 16 MiB
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12            # H100 SXM dense TF32 tensor cores
 TF32X3_FLOPS = TF32_FLOPS / 3  # B6 split-TF32 products; a reference only
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 ATTN_RTOL = 1e-4               # B5 vs plain, relative to the row's max |o|
 SERVE_LOGIT_RTOL = 1e-3        # kernel vs plain path, of the step's max |logit|
 SERVE_ARCH, SERVE_PARAMS = "recurrentgemma-9b", 9_627_414_528
@@ -166,6 +195,20 @@ MLA_ARCH, MLA_PARAMS = "deepseek-v3-671b", 15_111_101_696
 MLA_CUT = dict(n_layers=4, mtp_depth=0)   # 3 dense + 1 MoE layer, no MTP
 MLA_BATCH, MLA_PROMPT, MLA_GEN = 2, 1024, 16
 MLA_CHECK_PROMPT, MLA_CHECK_STEPS = 256, 8   # the lossless invariant's run
+WHISPER_ARCH, WHISPER_PARAMS = "whisper-large-v3", 1_392_056_320
+# 384 + 32 = 416 of whisper's 448 decoder positions
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = 4, 384, 32
+VISION_ARCH, VISION_PARAMS = "llama-3.2-vision-90b", 10_657_899_012
+VISION_CUT = dict(n_layers=10)  # 2 periods of 4 global + 1 cross layer
+VISION_BATCH, VISION_PROMPT, VISION_GEN = 4, 1024, 32
+VISION_GATE = 0.5              # both tanh gates of a cross layer (0 at init)
+MEMORY_MOVE_RTOL = 1e-2        # other image embeddings must move the prefill
+                               # logits by more, of the largest |logit|
+BF16_LAYER_RTOL = 3e-2         # bf16: one block through the kernels vs
+                               # plain on the same input, of its max |value|
+BF16_F32_MARGIN = 0.1          # bf16: the kernel path's mean distance from
+                               # the f32 path may exceed the plain bf16
+                               # path's by this share of it
 SSD_RTOL = 1e-4                # B6 vs plain, of the (batch, head)'s max |value|
 SSD_SEQ_RTOL = 1e-3            # B6 vs the sequential oracle (step-by-step
                                # decays against exponentiated cumsums)
@@ -179,23 +222,38 @@ TRAIN_STEPS, TRAIN_RESTART, TRAIN_TIMED_STEPS = 40, 20, 3
 TRAIN_GRAD_RTOL = 1e-3         # kernel vs plain gradient, of the leaf's max |g|
 TRAIN_LOSS_RTOL = 1e-5         # kernel vs plain loss, relative
 HOST_COVER_CYCLES = 2_000_000  # ~1 ms of card spin ahead of each timed call
-# (b, h, kv, sq, sk, hd, causal, window, softcap); the first is the
-# serving shape of recurrentgemma-9b's local-attention layers
-ATTN_CASES = ((4, 16, 1, 4000, 4000, 256, True, 2048, 0.0),
-              (1, 4, 4, 333, 333, 64, True, 0, 0.0),        # MHA
-              (2, 8, 2, 517, 517, 128, True, 100, 30.0),    # GQA
-              (1, 8, 1, 129, 129, 256, False, 0, 0.0),      # MQA
-              (2, 4, 2, 200, 200, 128, False, 50, 30.0),
-              (1, 4, 1, 45, 300, 64, False, 0, 0.0),        # sq < sk
-              (3, 6, 3, 1000, 1000, 64, True, 256, 30.0),
-              (1, 1, 1, 1, 1, 64, True, 0, 0.0),
-              # hd 256 with sq/sk not multiples of the 16-key tile or the
-              # 128-row query tile, the window's edge inside a tile
-              (1, 16, 1, 1000, 1000, 256, True, 333, 30.0),
-              (2, 4, 2, 77, 1001, 256, False, 0, 30.0),   # sq < sk
-              (1, 8, 2, 250, 250, 256, True, 17, 0.0),    # GQA, window < tile
-              (4, 16, 16, 4000, 4000, 128, True, 0, 0.0))  # qwen2-moe's prefill
-ATTN_MOE_CASE = len(ATTN_CASES) - 1
+# (b, h, kv, sq, sk, hd, causal, window, softcap)
+# B5 at the shapes the served paths give it, by path: recurrentgemma-9b's
+# local attention ([serve]), qwen2-moe's prefill, whisper-large-v3's
+# encoder over 1,500 frames and its decoder's self attention, the encdec
+# cross attention no config reaches, llama-3.2-vision's GQA self and
+# cross attention; each is checked in [model-kernels] and timed in
+# [timing] beside SDPA
+ATTN_SERVED = {
+    "serve": (4, 16, 1, 4000, 4000, 256, True, 2048, 0.0),
+    "qwen2-moe": (4, 16, 16, 4000, 4000, 128, True, 0, 0.0),
+    "whisper-encoder": (4, 20, 20, 1500, 1500, 64, False, 0, 0.0),
+    "whisper-decoder": (4, 20, 20, 384, 384, 64, True, 0, 0.0),
+    "whisper-encdec-cross": (4, 20, 20, 384, 1500, 64, False, 0, 0.0),
+    "vision-self": (4, 64, 8, 1024, 1024, 128, True, 0, 0.0),
+    "vision-cross": (4, 64, 8, 1024, 1601, 128, False, 0, 0.0),
+}
+# the served shapes B5 also takes in bf16: [serve]'s (no bf16 path runs
+# it) and the two of whisper that [serve-bf16] drives
+ATTN_BF16 = ("serve", "whisper-encoder", "whisper-decoder")
+ATTN_CASES = tuple(ATTN_SERVED.values()) + (
+    (1, 4, 4, 333, 333, 64, True, 0, 0.0),        # MHA
+    (2, 8, 2, 517, 517, 128, True, 100, 30.0),    # GQA
+    (1, 8, 1, 129, 129, 256, False, 0, 0.0),      # MQA
+    (2, 4, 2, 200, 200, 128, False, 50, 30.0),
+    (1, 4, 1, 45, 300, 64, False, 0, 0.0),        # sq < sk
+    (3, 6, 3, 1000, 1000, 64, True, 256, 30.0),
+    (1, 1, 1, 1, 1, 64, True, 0, 0.0),
+    # hd 256 with sq/sk not multiples of the 16-key tile or the 128-row
+    # query tile, the window's edge inside a tile
+    (1, 16, 1, 1000, 1000, 256, True, 333, 30.0),
+    (2, 4, 2, 77, 1001, 256, False, 0, 30.0),     # sq < sk
+    (1, 8, 2, 250, 250, 256, True, 17, 0.0))      # GQA, window < tile
 # (b, s, w, h0); the first two are the serving shape of the RG-LRU layers
 # s not a multiple of the 32-step stage, w not a multiple of the 32-channel
 # block (16-byte copies at w % 4 == 0, 4-byte ones otherwise)
@@ -793,6 +851,7 @@ def phase_model_kernels(torch, KA, KR, KS, chk, dev):
                          f"{rel:.3e} of the (batch, head)'s max (limit "
                          f"{rtol}; max abs error {err})")
         del args, got, wants
+    bf16 = bf16_wrappers(torch, KA, KS, gen, dev)
     torch.cuda.synchronize()
     log(f"[model-kernels] kernel == plain on the card: flash_attention "
         f"{chk.cases['flash_attention']} cases (MHA/GQA/MQA, window 0 and "
@@ -809,6 +868,71 @@ def phase_model_kernels(torch, KA, KR, KS, chk, dev):
         f"{ssd_rel:.3e} (limit {SSD_RTOL}; {ssd_worst}), against "
         f"ssd_reference at "
         f"SSD_CASES[{SSD_SEQ_CASE}] {seq_rel:.3e} (limit {SSD_SEQ_RTOL})")
+    log(f"[model-kernels] on bf16 inputs at the shapes the bf16 paths "
+        f"serve (cast to f32 for the kernel), the kernel's bf16 output "
+        f"against the plain version's f32 result on the same values, "
+        f"within the f32 limit of the row's or (batch, head)'s max plus "
+        f"2^-8 of |value|: " + "; ".join(
+            f"{name} max abs error {err:.3e}, max error / max "
+            f"{rel:.3e}" for name, (err, rel) in bf16.items()))
+
+
+def bf16_wrappers(torch, KA, KS, gen, dev):
+    """B5 at ``ATTN_BF16``'s shapes and B6 at ``[serve-ssm]``'s (x, B, C
+    in bf16, the state f32 as the cache gives it) on bf16 inputs: each
+    output in the plain version's dtype (bf16 y, f32 state) and within
+    the f32 check's limit (``ATTN_RTOL`` of the row's largest |o|,
+    ``SSD_RTOL`` of the (batch, head)'s) plus one bf16 rounding, 2^-8 of
+    |value|, of the plain version's f32 result on the same values; the
+    state within ``SSD_RTOL``.  -> {name: (max abs error, max error /
+    the row's or (batch, head)'s max)}."""
+    out = {}
+    for name in ATTN_BF16:
+        b, h, kv, sq, sk, hd, causal, window, cap = ATTN_SERVED[name]
+        q, k, v = (t.bfloat16() for t in attn_inputs(
+            torch, gen, dev, b, h, kv, sq, sk, hd))
+        kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+                  softcap=cap)
+        got = KA.flash_attention_kernel(q, k, v, **kw)
+        want = KA.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        **kw)
+        what = f"flash_attention on bf16 inputs at {name}'s shape"
+        if got.dtype != torch.bfloat16 or got.shape != want.shape or \
+                not bool(torch.isfinite(got).all()):
+            fail(f"{what}: {got.dtype} {tuple(got.shape)} or non-finite")
+        err = (got.float() - want).abs()
+        row = want.abs().amax(-1, keepdim=True)
+        out[f"B5 {name}"] = (float(err.max()), float(
+            (err / row.clamp_min(1e-30)).max()))
+        if not bool((err <= ATTN_RTOL * row + 2.0 ** -8 * want.abs()).all()):
+            fail(f"{what}: kernel and plain differ by more than "
+                 f"{ATTN_RTOL} of the row's max plus 2^-8 of |o| (max abs "
+                 f"error {float(err.max())})")
+        del q, k, v, got, want, err, row
+    b, s_, h, p, n, g, chunk, with_s0 = SSD_CASES[0]
+    args = list(ssd_inputs(torch, gen, dev, b, s_, h, p, n, g, with_s0))
+    for j in (0, 3, 4):
+        args[j] = args[j].bfloat16()
+    y, final = KS.ssd_scan(*args[:5], chunk=chunk, initial_state=args[5])
+    wy, wf = KS.ssd_chunked(*(t.float() for t in args[:5]), chunk,
+                            initial_state=args[5])
+    what = (f"ssd_scan on bf16 x, B, C at [serve-ssm]'s shape (b={b} "
+            f"s={s_} h={h} p={p} n={n})")
+    if (y.dtype, final.dtype) != (torch.bfloat16, torch.float32) or \
+            not bool(torch.isfinite(y).all() & torch.isfinite(final).all()):
+        fail(f"{what}: y {y.dtype}, state {final.dtype}, or non-finite")
+    err = (y.float() - wy).abs()
+    scale = wy.abs().amax(dim=(1, 3), keepdim=True)
+    ferr, frel = ssd_error(final, wf, (2, 3))
+    out["B6 serve-ssm y"] = (float(err.max()), float(
+        (err / scale.clamp_min(1e-30)).max()))
+    out["B6 serve-ssm state"] = (ferr, frel)
+    if not bool((err <= SSD_RTOL * scale + 2.0 ** -8 * wy.abs()).all()) or \
+            not frel <= SSD_RTOL:
+        fail(f"{what}: y beyond {SSD_RTOL} of the (batch, head)'s max plus "
+             f"2^-8 of |y| (max abs error {float(err.max())}), or the "
+             f"state {frel:.3e} of its max")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -980,7 +1104,7 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     # is SDPA with the same boolean window-causal mask over K/V expanded
     # to every head (the port never calls it)
     import torch.nn.functional as F
-    b, h, kv, sq, sk, hd, causal, window, cap = ATTN_CASES[0]
+    b, h, kv, sq, sk, hd, causal, window, cap = ATTN_SERVED["serve"]
     q, k, v = attn_inputs(torch, gen, dev, b, h, kv, sq, sk, hd)
     kw = dict(scale=hd ** -0.5, causal=causal, window=window, softcap=cap)
     qi = torch.arange(sq, device=dev)[:, None]
@@ -1003,23 +1127,62 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
         f"window={window} f32 ({pairs} visible pairs per head)")
     del q, k, v, k16, v16, mask
 
-    # B5 at qwen2-moe's prefill shape (MHA, hd 128, causal, no window):
-    # the [serve-moe] path's launches; the yardstick is SDPA's causal form
-    b, h, kv, sq, sk, hd, causal, window, cap = ATTN_CASES[ATTN_MOE_CASE]
-    q, k, v = attn_inputs(torch, gen, dev, b, h, kv, sq, sk, hd)
-    kw = dict(scale=hd ** -0.5, causal=causal, window=window, softcap=cap)
-    pairs = attn_pairs(sq, sk, causal, window)
-    out["flash_attention@qwen2-moe"] = dict(
-        ms=device_ms(torch, lambda: KA.flash_attention_kernel(q, k, v, **kw)),
-        plain_ms=device_ms(torch, lambda: KA.flash_attention_plain(
-            q, k, v, **kw)),
-        library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=kw["scale"])),
-        bound_bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
-        bound_flops=4 * hd * pairs * b * h, flops_rate=TF32_FLOPS,
-        shape=f"b={b} h={h} kv={kv} s={sq} hd={hd} causal, no window, f32 "
-        f"({pairs} visible pairs per head)")
-    del q, k, v
+    # B5 at the other served shapes (ATTN_SERVED) in f32, then at
+    # ATTN_BF16's on bf16 inputs (the configs' default dtype, cast to f32
+    # for the kernel; the bound reads and writes 2-byte elements at the
+    # bf16 tensor-core rate); the yardstick is SDPA's causal or unmasked
+    # form over K/V expanded to every head, or at [serve]'s shape its
+    # window-causal boolean mask
+    served = [(name, False) for name in ATTN_SERVED if name != "serve"]
+    for name, bf16 in served + [(name, True) for name in ATTN_BF16]:
+        b, h, kv, sq, sk, hd, causal, window, cap = ATTN_SERVED[name]
+        q, k, v = attn_inputs(torch, gen, dev, b, h, kv, sq, sk, hd)
+        if bf16:
+            q, k, v = (t.bfloat16() for t in (q, k, v))
+        kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+                  softcap=cap)
+        kx, vx = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
+        if window:
+            mask = (ki <= qi) & (ki > qi - window)
+            sdpa = dict(attn_mask=mask)
+        else:
+            sdpa = dict(is_causal=causal)
+        pairs = attn_pairs(sq, sk, causal, window)
+        size = 2 if bf16 else 4
+        out[f"flash_attention@{name}" + ("@bf16" if bf16 else "")] = dict(
+            ms=device_ms(torch, lambda: KA.flash_attention_kernel(
+                q, k, v, **kw)),
+            plain_ms=device_ms(torch, lambda: KA.flash_attention_plain(
+                q, k, v, **kw)),
+            library_ms=device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, kx, vx, scale=kw["scale"], **sdpa)),
+            bound_bytes=size * (2 * q.numel() + k.numel() + v.numel()),
+            bound_flops=4 * hd * pairs * b * h,
+            flops_rate=BF16_FLOPS if bf16 else TF32_FLOPS,
+            shape=f"b={b} h={h} kv={kv} sq={sq} sk={sk} hd={hd} "
+            f"{'causal' if causal else 'non-causal'}"
+            f"{f' window={window}' if window else ''}, "
+            f"{'bf16' if bf16 else 'f32'} ({pairs} visible pairs per head)")
+        del q, k, v, kx, vx, sdpa
+    del qi, ki
+
+    b, s_, h, p, n, g, chunk, with_s0 = SSD_CASES[0]
+    args = list(ssd_inputs(torch, gen, dev, b, s_, h, p, n, g, with_s0))
+    for j in (0, 3, 4):             # x, B, C; dt, a_log and the state f32
+        args[j] = args[j].bfloat16()
+    io = sum(t.numel() * t.element_size() for t in args if t is not None) \
+        + 2 * b * s_ * h * p + 4 * b * h * p * n   # + y (bf16), the state
+    out["ssd_scan@bf16"] = dict(
+        ms=device_ms(torch, lambda: KS.ssd_scan(
+            *args[:5], chunk=chunk, initial_state=args[5])),
+        plain_ms=device_ms(torch, lambda: KS.ssd_chunked(
+            *args[:5], chunk, initial_state=args[5])),
+        library_ms=None, bound_bytes=io,
+        bound_flops=ssd_flops(b, s_, h, p, n, 1), flops_rate=BF16_FLOPS,
+        shape=f"b={b} s={s_} h={h} p={p} n={n} g={g} x, B, C bf16, "
+        f"state f32, counted at chunk 1")
+    del args
 
     # B7: one RG-LRU layer of the [serve] prefill (h0 from the cache); no
     # one PyTorch call computes a linear recurrence
@@ -1978,21 +2141,31 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
                 prompt=SERVE_PROMPT, gen=SERVE_GEN):
     """[serve] recurrentgemma-9b (or, as [serve-ssm], mamba2-130m; as
     [serve-moe], qwen2-moe-a2.7b; as [serve-mla], deepseek-v3 cut to 4
-    layers) at full width through the port's Server: weights drawn on
-    the card from torch.Generator seed 0, ``batch`` prompts of
-    ``prompt`` tokens (numpy seed 0), ``gen`` greedy tokens.  The
-    prefill must launch B5 once per attention layer (none with MLA), B7
-    once per RG-LRU layer and B6 once per SSD layer, and no other; the
-    token log must read back.  Then the kernel path's logits must agree
-    with the plain path's on the same weights (one copy on the card) at
-    prefill and at every decode step fed the served tokens; a model that
-    runs no kernel (MLA) is held to ``mla_lossless_check`` instead.
-    Returns the launches of the kernels the model runs."""
+    layers; as [serve-whisper], whisper-large-v3; as [serve-vision],
+    llama-3.2-vision cut to 10 layers; as [serve-bf16], mamba2-130m and
+    whisper-large-v3 in bf16) at full width through the port's Server:
+    weights drawn on the card from torch.Generator seed 0, ``batch``
+    prompts of ``prompt`` tokens (numpy seed 0; then, from the same
+    generator, whisper's frames or vision's image embeddings, as the
+    reference's ``serve.main`` draws them), ``gen`` greedy tokens.
+    A model with cross layers gets both their gates set to
+    ``VISION_GATE`` first (``set_cross_gates``).  The prefill must
+    launch B5 once per attention layer (twice per ``encdec`` layer, once
+    per encoder layer where the stack reads the encoder; none with MLA),
+    B7 once per RG-LRU layer and B6 once per SSD layer, and no other;
+    the token log must read back.  Whisper's encoder is then driven on
+    its own (``encoder_check``).  Then the kernel path's logits must
+    agree with the plain path's on the same weights (one copy on the
+    card) at prefill and at every decode step fed the served tokens
+    (``plain_path``); a bf16 model's blocks are also held one by one
+    (``layer_check``); a model that runs no kernel (MLA) is held to
+    ``mla_lossless_check`` instead.  Returns the launches of the kernels
+    the model runs."""
     import numpy as np
     from repro_torch.core import FunctionShipper
     from repro_torch.launch.serve import Server
     from repro_torch.models import model as mdl
-    from repro_torch.models.transformer import stack_kinds
+    from repro_torch.models.transformer import reads_memory, stack_kinds
     from repro_torch.tree import leaves
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32,
@@ -2001,17 +2174,22 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
         fail(f"[{tag}] TF32 matmuls are on; the kernel and plain paths "
              "would differ for a reason that is neither")
     kinds = [k for ks in stack_kinds(cfg).values() for k in ks]
+    encoder = cfg.n_encoder_layers if (cfg.is_encoder_decoder
+                                       and reads_memory(cfg)) else 0
     want_launches = {
         "flash_attention": 0 if cfg.use_mla else (
-            kinds.count("local") + kinds.count("global")),
+            kinds.count("local") + kinds.count("global")
+            + kinds.count("cross") + 2 * kinds.count("encdec") + encoder),
         "rglru_scan": kinds.count("rglru"), "ssd_scan": kinds.count("ssd")}
     used = [k for k in MODEL_KERNELS if want_launches[k]]
     n_params = mdl.count_params_analytic(cfg)
     if n_params != expect_params:
         fail(f"[{tag}] {cfg.name} counts {n_params} parameters, expected "
              f"{expect_params}")
-    prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_real, (batch, prompt)).astype(np.int32)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_real, (batch, prompt)).astype(
+        np.int32)
+    extra = memory_inputs(cfg, rng, batch)
     max_len = prompt + gen + 8
     root = ROOT / ".chip_smoke" / tag
     remove_store(root)
@@ -2028,14 +2206,23 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
                  f"{n_params}")
         log(f"[{tag}] {cfg.name}: {held} f32 parameters "
             f"({torch.cuda.memory_allocated(dev)} B on the card) drawn in "
-            f"{init_s:.3f} s; TF32 allow matmul {tf32[0]} cudnn {tf32[1]} "
-            f"float32 matmul precision {tf32[2]!r}; batch {batch} x "
-            f"{prompt} prompt tokens, {gen} generated")
+            f"{init_s:.3f} s, computing in {cfg.dtype}; TF32 allow matmul "
+            f"{tf32[0]} cudnn {tf32[1]} float32 matmul precision "
+            f"{tf32[2]!r}; batch {batch} x {prompt} prompt tokens, {gen} "
+            f"generated" + "".join(f"; {k} {tuple(v.shape)} (numpy seed 0, "
+                                   f"after the prompts)"
+                                   for k, v in extra.items()))
+        if cfg.cross_attn_period:
+            log(f"[{tag}] both tanh gates of "
+                f"{set_cross_gates(torch, srv.params)} cross layers set to "
+                f"{VISION_GATE} after the seeded init (they start at 0, "
+                f"where a cross layer is the identity)")
         routes = ([], [])
         ext.reset_launch_counts()               # the served path starts here
         with record_routes(routes[0]):
             (out, stats), kms = kernel_event_times(
-                torch, lambda: srv.generate(prompts, gen, keep_logits=True))
+                torch, lambda: srv.generate(prompts, gen, extra=extra,
+                                            keep_logits=True))
         launches = {k: ext.LAUNCHES[k] for k in MODEL_KERNELS}  # ends here
         peak = torch.cuda.max_memory_allocated(dev)
         srv.close()
@@ -2092,8 +2279,17 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
             del cache
             mla_lossless_check(torch, srv.params, cfg, dev, tag)
         else:
+            if cfg.is_encoder_decoder:
+                encoder_check(torch, ext, srv.params, cfg, dev, tag,
+                              extra["frames"])
             plain_path(torch, srv.params, cfg, dev, tag, prompts, out,
-                       logits, routes)
+                       logits, routes, extra)
+            if cfg.dtype == "bfloat16":
+                layer_check(torch, srv.params, cfg, dev, tag, prompts,
+                            extra)
+            if cfg.cross_attn_period:
+                memory_moves(torch, srv.params, cfg, dev, tag, prompts,
+                             logits[0], memory_inputs(cfg, rng, batch))
             del logits
         del srv
         torch.cuda.empty_cache()
@@ -2102,35 +2298,64 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
         remove_store(root)
 
 
-def plain_path(torch, params, cfg, dev, tag, prompts, out, logits, routes):
+def rms_rel(a, b) -> float:
+    """|a - b| / |b| over all elements (the RMS of the difference over
+    the RMS of ``b``)."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def plain_path(torch, params, cfg, dev, tag, prompts, out, logits, routes,
+               extra):
     """The plain path (``use_kernels=False``) on the same weights:
-    prefill, then decode fed the kernel path's tokens; each step's
-    logits within ``SERVE_LOGIT_RTOL`` of its largest |logit|.  For a
-    MoE model the two paths' routing choices (``routes``: the kernel
-    path's, filled here with the plain path's) are compared first: a
-    top-k or capacity choice flipped at a near-tie is the one way the
-    paths can part by more than rounding."""
+    prefill, then decode fed the kernel path's tokens.  In f32 each
+    step's logits must be within ``SERVE_LOGIT_RTOL`` of its largest
+    |logit| and every greedy choice must agree (except a MoE model's,
+    whose routing can flip at a near-tie: C19).  For a MoE model the
+    two paths' routing choices (``routes``: the kernel path's, filled
+    here with the plain path's) are compared first.
+
+    In bf16 the two paths round to bf16 after every op, and a rounding
+    flipped by another f32 sum in B5 or B6 grows through the layers and
+    along the sequence into noise of bf16's own size, so their logits
+    are not held to each other (``layer_check`` holds each block).  The
+    plain path runs again in f32 on the same weights and fed tokens, and
+    the kernel path's distance from it (|a - b| / |b| over a step's
+    logits, averaged over the prefill and decode steps) must not exceed
+    the plain bf16 path's by more than ``BF16_F32_MARGIN`` of it."""
     from repro_torch.models import model as mdl
     batch, prompt = prompts.shape
     gen = out.shape[1]
+    bf16 = cfg.dtype == "bfloat16"
     torch.cuda.reset_peak_memory_stats(dev)
-    cache = mdl.init_decode_state(cfg, batch, prompt + gen + 8,
-                                  dtype=torch.float32, device=dev)
-    rel, agree = [], 0
-    with record_routes(routes[1]):
-        t0 = time.perf_counter()
-        plain, cache = mdl.prefill(params, {"tokens": prompts}, cfg, cache,
-                                   use_kernels=False)
-        torch.cuda.synchronize(dev)
-        plain_s = time.perf_counter() - t0
-        for i in range(gen + 1):
-            if i:
-                plain, cache = mdl.decode_step(
+
+    def run(cfg, record):
+        """-> (per-step logits, last cache, prefill s) of the plain path"""
+        cache = mdl.init_decode_state(
+            cfg, batch, prompt + gen + 8, device=dev,
+            dtype=torch.bfloat16 if cfg.dtype == "bfloat16"
+            else torch.float32)
+        steps = []
+        with record_routes(record):
+            t0 = time.perf_counter()
+            lg, cache = mdl.prefill(params, {"tokens": prompts, **extra},
+                                    cfg, cache, use_kernels=False)
+            torch.cuda.synchronize(dev)
+            prefill_s = time.perf_counter() - t0
+            steps.append(lg[..., :cfg.vocab_real])
+            for i in range(1, gen + 1):
+                lg, cache = mdl.decode_step(
                     params, torch.from_numpy(out[:, i - 1:i]),
                     prompt + i - 1, cfg, cache)
-            rel.append(float((logits[i] - plain).abs().max())
-                       / float(plain.abs().max()))
-            agree += int((logits[i].argmax(-1) == plain.argmax(-1)).sum())
+                steps.append(lg[..., :cfg.vocab_real])
+        return steps, cache, prefill_s
+
+    logits = [lg[..., :cfg.vocab_real] for lg in logits]
+    plain, cache, plain_s = run(cfg, routes[1])
+    rel = [float((logits[i] - plain[i]).abs().max())
+           / float(plain[i].abs().max()) for i in range(gen + 1)]
+    n_agree = sum(int((logits[i].argmax(-1) == plain[i].argmax(-1)).sum())
+                  for i in range(gen + 1))
     if cfg.is_moe:
         n_pre = cfg.n_layers - cfg.n_dense_layers      # one prefill
         pre = route_flips(routes[0][:n_pre], routes[1][:n_pre])
@@ -2138,21 +2363,218 @@ def plain_path(torch, params, cfg, dev, tag, prompts, out, logits, routes):
         log(f"[{tag}] routing, kernel path against plain path: expert "
             f"choice or drop differs for {pre[0]} of {pre[1]} "
             f"token-layers in the prefill, {dec[0]} of {dec[1]} in decode")
-    worst = max(range(gen + 1), key=lambda i: rel[i])
-    if not rel[worst] <= SERVE_LOGIT_RTOL:
-        fail(f"[{tag}] step {worst}: kernel and plain logits differ by "
-             f"{rel[worst]:.3e} of the largest |logit| (limit "
-             f"{SERVE_LOGIT_RTOL})")
+    if bf16:
+        f32 = run(cfg.scaled(dtype="float32"), [])[0]
+        dist = {name: [rms_rel(a[i], b[i]) for i in range(gen + 1)]
+                for name, a, b in (("kernel - plain bf16", logits, plain),
+                                   ("plain bf16 - f32", plain, f32),
+                                   ("kernel bf16 - f32", logits, f32))}
+        dmax = [float((plain[i] - f32[i]).abs().max())
+                / float(f32[i].abs().max()) for i in range(gen + 1)]
+        del f32
+        mean = {name: sum(d) / len(d) for name, d in dist.items()}
+        log(f"[{tag}] bf16, |a - b| / |b| over each step's logits "
+            f"(prefill, then the {gen} decode steps): " + "; ".join(
+                f"{name} {['%.3e' % r for r in d]}"
+                for name, d in dist.items())
+            + f"; max |a - b| / max |b|: kernel - plain bf16 "
+            f"{['%.3e' % r for r in rel]}, plain bf16 - f32 "
+            f"{['%.3e' % r for r in dmax]}")
+        bound = (1 + BF16_F32_MARGIN) * mean["plain bf16 - f32"]
+        if not mean["kernel bf16 - f32"] <= bound:
+            fail(f"[{tag}] the bf16 kernel path is {mean['kernel bf16 - f32']:.4e} "
+                 f"from the f32 path on average, farther than the plain "
+                 f"bf16 path's {mean['plain bf16 - f32']:.4e} by more than "
+                 f"{BF16_F32_MARGIN} of it")
+        verdict = (f"mean |a - b| / |b| from the f32 path: kernel bf16 "
+                   f"{mean['kernel bf16 - f32']:.4e}, plain bf16 "
+                   f"{mean['plain bf16 - f32']:.4e} (the kernel's may "
+                   f"exceed it by {BF16_F32_MARGIN} of it: {bound:.4e}); "
+                   f"kernel - plain bf16 {mean['kernel - plain bf16']:.4e}; "
+                   f"max |kernel - plain| / max |logit| at prefill "
+                   f"{rel[0]:.3e}, over the decode steps {max(rel[1:]):.3e}")
+    else:
+        worst = max(range(gen + 1), key=lambda i: rel[i])
+        if not rel[worst] <= SERVE_LOGIT_RTOL:
+            fail(f"[{tag}] step {worst}: kernel and plain logits differ by "
+                 f"{rel[worst]:.3e} of the largest |logit| (limit "
+                 f"{SERVE_LOGIT_RTOL})")
+        if not cfg.is_moe and n_agree != batch * (gen + 1):
+            fail(f"[{tag}] the kernel and plain paths chose other greedy "
+                 f"tokens: {n_agree} of {batch * (gen + 1)} agree")
+        verdict = (f"max |kernel - plain| / max |logit| at prefill "
+                   f"{rel[0]:.3e}, over the {gen} decode steps "
+                   f"{max(rel[1:]):.3e} (limit {SERVE_LOGIT_RTOL})")
     profile_decode(torch, lambda i: mdl.decode_step(
-        params, plain.argmax(-1)[:, None], prompt + gen + i, cfg,
+        params, plain[-1].argmax(-1)[:, None], prompt + gen + i, cfg,
         cache), PROFILE_STEPS, tag)
     log(f"[{tag}] plain path (use_kernels=False: the reference's dense "
         f"attention, log-depth scan and chunked SSD) on the same "
         f"weights: prefill {plain_s:.3f} s, peak card memory "
-        f"{torch.cuda.max_memory_allocated(dev)} B; max |kernel - "
-        f"plain| / max |logit| at prefill {rel[0]:.3e}, over the {gen} "
-        f"decode steps {max(rel[1:]):.3e} (limit {SERVE_LOGIT_RTOL}); "
-        f"greedy choices agree {agree}/{batch * (gen + 1)}")
+        f"{torch.cuda.max_memory_allocated(dev)} B; {verdict}; greedy "
+        f"choices agree {n_agree}/{batch * (gen + 1)}"
+        + ("" if bf16 or cfg.is_moe else " (all must)"))
+
+
+def layer_check(torch, params, cfg, dev, tag, prompts, extra):
+    """bf16: every block of the served stack, and of whisper's encoder
+    over the served frames, run through the kernels and through the
+    plain path on the same bf16 input (the kernel path's, block by
+    block, over the whole prompts as in training): the outputs within
+    ``BF16_LAYER_RTOL`` of the block output's largest |value|.  One
+    block's two outputs part only where a bf16 rounding of B5's or B6's
+    output flips (2^-8 of a value), so no noise carried from earlier
+    layers widens the limit."""
+    from repro_torch.models import model as mdl
+    from repro_torch.models import transformer as tfm
+    block_forward = tfm.block_forward
+    worst, part = {}, ["decoder"]
+
+    def both(bp, x, cfg_, kind, **kw):
+        kw.pop("use_kernels")
+        got = block_forward(bp, x, cfg_, kind, use_kernels=True, **kw)
+        want = block_forward(bp, x, cfg_, kind, use_kernels=False, **kw)
+        r = float((got[0].float() - want[0].float()).abs().max()) / float(
+            want[0].float().abs().max())
+        n, w = worst.get((part[0], kind), (0, 0.0))
+        worst[part[0], kind] = (n + 1, max(w, r))
+        if not r <= BF16_LAYER_RTOL:
+            fail(f"[{tag}] a {part[0]} {kind} block's kernel and plain outputs on the "
+                 f"same bf16 input differ by {r:.3e} of its largest |value| "
+                 f"(limit {BF16_LAYER_RTOL})")
+        return got
+
+    tfm.block_forward = both
+    try:
+        with torch.no_grad():
+            memory = None
+            if cfg.is_encoder_decoder:      # driven even where unread
+                part[0] = "encoder"
+                memory = mdl._encode(params, extra["frames"], cfg,
+                                     use_kernels=True)
+                part[0] = "decoder"
+            elif tfm.reads_memory(cfg):
+                memory = mdl._memory(params, extra, cfg, True)
+            if not tfm.reads_memory(cfg):
+                memory = None
+            tokens = torch.from_numpy(prompts).to(dev)
+            x = mdl._embed(params, tokens, cfg, mdl.compute_dtype(cfg))
+            positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                     device=dev)[None].expand_as(tokens)
+            tfm.stack_forward_train(params["decoder"], x, cfg,
+                                    positions=positions, memory=memory,
+                                    use_kernels=True)
+    finally:
+        tfm.block_forward = block_forward
+    torch.cuda.synchronize(dev)
+    log(f"[{tag}] bf16 blocks one by one, kernel against plain on the same "
+        f"input, max |a - b| / max |b| (limit {BF16_LAYER_RTOL}): " + ", ".join(
+            f"{n} {kind} blocks of the {where} up to {w:.3e}"
+            for (where, kind), (n, w) in worst.items()))
+
+
+def memory_inputs(cfg, rng, batch):
+    """The stub frontends' input, as the reference's ``serve.main``
+    draws it from its generator after the prompts: whisper's frames
+    (batch, 1,500, d), vision's image embeddings (batch, 1,601, d),
+    standard normal in f32; {} for the other models."""
+    import numpy as np
+    if cfg.is_encoder_decoder:
+        shape, key = (batch, cfg.encoder_seq, cfg.d_model), "frames"
+    elif cfg.cross_attn_period:
+        shape, key = (batch, cfg.n_image_tokens, cfg.d_model), "image_embeds"
+    else:
+        return {}
+    return {key: rng.standard_normal(shape).astype(np.float32)}
+
+
+def encoder_check(torch, ext, params, cfg, dev, tag, frames):
+    """Whisper's encoder (``_encode``) over the served frames through B5
+    (non-causal, one launch a layer, counted from 0 just before and read
+    just after) and through the plain path: in f32 the outputs within
+    ``SERVE_LOGIT_RTOL`` of the largest |value|; in bf16 (where
+    ``layer_check`` holds each block) the kernel encoder's |a - b| / |b|
+    from the plain f32 encoder within ``1 + BF16_F32_MARGIN`` times the
+    plain bf16 encoder's, as ``plain_path``'s logits."""
+    from repro_torch.models import model as mdl
+    bf16 = cfg.dtype == "bfloat16"
+    ext.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    got = mdl._encode(params, frames, cfg, use_kernels=True)
+    torch.cuda.synchronize(dev)
+    kernel_s = time.perf_counter() - t0
+    launches = ext.LAUNCHES["flash_attention"]
+    if launches != cfg.n_encoder_layers or sum(ext.LAUNCHES.values()) != \
+            launches:
+        fail(f"[{tag}] the encoder launched {dict(ext.LAUNCHES)}, expected "
+             f"flash_attention {cfg.n_encoder_layers} times")
+    t0 = time.perf_counter()
+    want = mdl._encode(params, frames, cfg, use_kernels=False)
+    torch.cuda.synchronize(dev)
+    plain_s = time.perf_counter() - t0
+    rel = float((got.float() - want.float()).abs().max()) / float(
+        want.float().abs().max())
+    if got.shape != (frames.shape[0], cfg.encoder_seq, cfg.d_model) or \
+            not bool(torch.isfinite(got).all()):
+        fail(f"[{tag}] the encoder's output {tuple(got.shape)} is not of "
+             f"the expected shape, or not finite")
+    if bf16:
+        f32 = mdl._encode(params, frames, cfg.scaled(dtype="float32"),
+                          use_kernels=False)
+        own, kern = rms_rel(want, f32), rms_rel(got, f32)
+        del f32
+        verdict = (f"|a - b| / |b| from the plain f32 encoder: kernel bf16 "
+                   f"{kern:.4e}, plain bf16 {own:.4e} (the kernel's within "
+                   f"{1 + BF16_F32_MARGIN} times it); kernel - plain bf16 "
+                   f"{rms_rel(got, want):.4e}, max |kernel - plain| / max "
+                   f"|value| {rel:.3e}")
+        if not kern <= (1 + BF16_F32_MARGIN) * own:
+            fail(f"[{tag}] the bf16 encoder through B5: {verdict}")
+    else:
+        verdict = (f"max |kernel - plain| / max |value| {rel:.3e} (limit "
+                   f"{SERVE_LOGIT_RTOL})")
+        if not rel <= SERVE_LOGIT_RTOL:
+            fail(f"[{tag}] the encoder's kernel and plain outputs: "
+                 f"{verdict}")
+    log(f"[{tag}] encoder ({cfg.n_encoder_layers} layers over "
+        f"{tuple(frames.shape)} frames): {launches} B5 launches, "
+        f"{kernel_s:.3f} s through B5, {plain_s:.3f} s plain; {verdict}")
+
+
+def set_cross_gates(torch, params, value=VISION_GATE):
+    """Both tanh gates (attention's ``gate`` and the MLP's ``mlp_gate``)
+    of every cross layer to ``value``: they start at 0, where a cross
+    layer is the identity.  Returns how many layers were set."""
+    n = 0
+    for blocks in params["decoder"].values():
+        for bp in blocks:
+            if "mlp_gate" in bp:
+                bp["mlp_gate"].fill_(value)
+                bp["mixer"]["gate"].fill_(value)
+                n += 1
+    return n
+
+
+def memory_moves(torch, params, cfg, dev, tag, prompts, first, other):
+    """A second kernel-path prefill on other image embeddings (``other``,
+    the generator's next draw) must move the logits by more than
+    ``MEMORY_MOVE_RTOL`` of the largest |logit|: the cross layers read
+    the memory."""
+    from repro_torch.models import model as mdl
+    cache = mdl.init_decode_state(cfg, prompts.shape[0], prompts.shape[1],
+                                  dtype=torch.float32, device=dev)
+    again, cache = mdl.prefill(params, {"tokens": prompts, **other}, cfg,
+                               cache)
+    del cache
+    moved = float((again - first).abs().max()) / float(first.abs().max())
+    if not moved > MEMORY_MOVE_RTOL:
+        fail(f"[{tag}] other image embeddings moved the prefill logits by "
+             f"{moved:.3e} of the largest |logit| (must exceed "
+             f"{MEMORY_MOVE_RTOL})")
+    log(f"[{tag}] other image embeddings move the prefill logits by "
+        f"{moved:.3e} of the largest |logit| (must exceed "
+        f"{MEMORY_MOVE_RTOL})")
 
 
 def mla_lossless_check(torch, params, cfg, dev, tag):
@@ -2689,6 +3111,25 @@ def main() -> int:
         expect_params=MLA_PARAMS, batch=MLA_BATCH, prompt=MLA_PROMPT,
         gen=MLA_GEN)
     lap("serve-mla")
+    launches.update(phase_serve(
+        torch, _ext, get_config(WHISPER_ARCH).scaled(dtype="float32"), dev,
+        tag="serve-whisper", expect_params=WHISPER_PARAMS,
+        batch=WHISPER_BATCH, prompt=WHISPER_PROMPT, gen=WHISPER_GEN))
+    lap("serve-whisper")
+    launches.update(phase_serve(
+        torch, _ext, get_config(VISION_ARCH).scaled(
+            dtype="float32", **VISION_CUT), dev, tag="serve-vision",
+        expect_params=VISION_PARAMS, batch=VISION_BATCH,
+        prompt=VISION_PROMPT, gen=VISION_GEN))
+    lap("serve-vision")
+    # the configs' own default dtype, bf16 (C18)
+    phase_serve(torch, _ext, get_config(SSM_ARCH), dev, tag="serve-bf16",
+                expect_params=SSM_PARAMS, batch=SSM_BATCH,
+                prompt=SSM_PROMPT, gen=SSM_GEN)
+    phase_serve(torch, _ext, get_config(WHISPER_ARCH), dev,
+                tag="serve-bf16", expect_params=WHISPER_PARAMS,
+                batch=WHISPER_BATCH, prompt=WHISPER_PROMPT, gen=WHISPER_GEN)
+    lap("serve-bf16")
     trained = phase_train(torch, _ext, KS, dev, smi)
     lap("train")
 

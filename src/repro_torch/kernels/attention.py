@@ -20,6 +20,9 @@ import torch
 from repro_torch._ext import count_launch
 from repro_torch.kernels.grad import wants_grad, with_plain_grad
 
+# the input types the CUDA route takes; the kernel itself reads f32
+KERNEL_DTYPES = {torch.float32, torch.bfloat16}
+
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, scale: float, causal: bool = True,
@@ -76,8 +79,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            window: int = 0, softcap: float = 0.0
                            ) -> torch.Tensor:
     """q (b, h, sq, hd); k/v (b, kv, sk, hd) with h % kv == 0; returns
-    (b, h, sq, hd).  A CUDA tensor launches ``sage_flash_attention``
-    (f32, contiguous, hd in {64, 128, 256}); a CPU tensor runs
+    (b, h, sq, hd) in q.dtype.  A CUDA tensor launches
+    ``sage_flash_attention`` (f32 or bf16, contiguous, hd in {64, 128,
+    256}; bf16 is cast to f32 for the kernel); a CPU tensor runs
     ``flash_attention_plain``.  Where autograd records and an input
     requires grad, the CUDA route still launches the kernel, and its
     backward is the gradient of ``flash_attention_plain`` recomputed from
@@ -94,12 +98,17 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch(q, k, v, *, scale, causal, window, softcap):
-    """One launch of ``sage_flash_attention`` on checked CUDA inputs."""
-    if {q.dtype, k.dtype, v.dtype} != {torch.float32}:
-        raise TypeError(f"sage_flash_attention takes float32, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    """One launch of ``sage_flash_attention`` on checked CUDA inputs.
+    The kernel computes in f32: bf16 inputs are cast to f32 here (a copy
+    each, which also starts on a fresh 16-byte boundary) and the output
+    comes back in q.dtype, as ``flash_attention_plain``'s does."""
+    if not {q.dtype, k.dtype, v.dtype} <= KERNEL_DTYPES:
+        raise TypeError(f"sage_flash_attention takes float32 or bfloat16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("sage_flash_attention takes contiguous q, k, v")
+    out_dtype = q.dtype
+    q, k, v = (t.float() for t in (q, k, v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("sage_flash_attention takes q, k, v starting on a "
                          "16-byte boundary (it copies rows 16 bytes at a "
@@ -111,7 +120,7 @@ def _launch(q, k, v, *, scale, causal, window, softcap):
                          f"256, got {hd}")
     out = torch.empty_like(q)
     if sq == 0 or sk == 0 or b == 0:
-        return out.zero_()
+        return out.zero_().to(out_dtype)
     from repro_torch import _ext
     lib = _ext.library()
     with torch.cuda.device(q.device):
@@ -121,7 +130,7 @@ def _launch(q, k, v, *, scale, causal, window, softcap):
             float(softcap), torch.cuda.current_stream(q.device).cuda_stream)
     _ext.check(lib, err, "flash_attention")
     count_launch("flash_attention")
-    return out
+    return out.to(out_dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

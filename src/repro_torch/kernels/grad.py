@@ -34,7 +34,13 @@ class _KernelWithPlainGrad(torch.autograd.Function):
         outs = outs if isinstance(outs, tuple) else (outs,)
         wrt = [t for t, n in zip(inputs, need) if n]
         got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
-        return (None, None) + tuple(next(got) if n else None for n in need)
+        # each gradient in its input's dtype (a bf16 input's is bf16)
+        return (None, None) + tuple(
+            _like(next(got), t) if n else None for t, n in zip(inputs, need))
+
+
+def _like(grad, t):
+    return None if grad is None else grad.to(t.dtype)
 
 
 def wants_grad(*tensors) -> bool:

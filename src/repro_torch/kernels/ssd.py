@@ -27,6 +27,8 @@ from repro_torch._ext import count_launch
 from repro_torch.kernels.grad import wants_grad, with_plain_grad
 
 KERNEL_STATES = (16, 32, 64, 128, 256)   # state sizes n the kernel takes
+# the input types the CUDA route takes; the kernel itself reads f32
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # rows per chunk of the kernel's states and per sub-chunk of its scores:
 # the scratch is sized by them, and the kernel refuses any other pair
 KERNEL_CHUNK = 256
@@ -49,10 +51,16 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """Chunked SSD scan, the reference's algorithm.
 
     x: (b, s, h, p); dt: (b, s, h) (post-softplus); a_log: (h,) (A =
-    -exp); B, C: (b, s, g, n) with h % g == 0.  Returns (y (b, s, h, p),
-    final_state (b, h, p, n)).  B and C are indexed by group, not
-    repeated over the heads; the decay matrix is weighted in place.
+    -exp); B, C: (b, s, g, n) with h % g == 0.  Returns (y (b, s, h, p)
+    in x.dtype, final_state (b, h, p, n)).  B and C are indexed by group,
+    not repeated over the heads.  x, B and C narrower than f32 (the
+    models' bf16) are computed in f32 and y is rounded once to x.dtype,
+    where the reference rounds each product to bf16 (ROADMAP C23); the
+    state stays f32.
     """
+    out_dtype = x.dtype
+    wide = torch.promote_types(x.dtype, torch.float32)
+    x, B, C = (t.to(wide) for t in (x, B, C))
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     r = h // g
@@ -117,7 +125,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     y_off = y_off.reshape(b, nc, h, L, p) * torch.exp(cs).to(
         dA.dtype)[..., None]
     y = (y_diag + y_off).permute(0, 1, 3, 2, 4).reshape(b, nc * L, h, p)
-    return y[:, :s], carry
+    return y[:, :s].to(out_dtype), carry
 
 
 def _check(x, dt, a_log, B, C, initial_state):
@@ -146,13 +154,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, chunk: int = 256,
              initial_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (b, s, h, p), final state (b, h, p, n)).  A CUDA
-    tensor launches ``sage_ssd_scan`` (f32, contiguous, n in
-    ``KERNEL_STATES``): its four kernels take each 64-row sub-chunk's
-    C·Bᵀ once per group and the state at every ``KERNEL_CHUNK`` rows
-    through scratch allocated here ((b, g, s/64, 64, 64) and (b, h, nc,
-    p, n) f32), and walk each chunk in ``KERNEL_SUB``-row sub-chunks on
-    the tensor cores (split TF32).  The chunked form is exact for any chunk
+    """Returns (y (b, s, h, p) in x.dtype, final state (b, h, p, n) f32).
+    A CUDA tensor launches ``sage_ssd_scan`` (f32 or bf16, cast to f32
+    for the kernel; contiguous; n in ``KERNEL_STATES``): its four
+    kernels take each 64-row sub-chunk's C·Bᵀ once per group and the
+    state at every ``KERNEL_CHUNK`` rows through scratch allocated here
+    ((b, g, s/64, 64, 64) and (b, h, nc, p, n) f32), and walk each chunk
+    in ``KERNEL_SUB``-row sub-chunks on the tensor cores (split TF32).
+    The chunked form is exact for any chunk
     length, so ``chunk`` only sets the plain version's chunks and the two
     differ by rounding.  A CPU tensor runs ``ssd_chunked``.
 
@@ -175,15 +184,25 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def _launch(x, dt, a_log, B, C, initial_state):
-    """One launch of ``sage_ssd_scan`` on checked CUDA inputs."""
+    """One launch of ``sage_ssd_scan`` on checked CUDA inputs.  The
+    kernel reads f32: bf16 x, B, C or state are cast to f32 here (a copy
+    each) and y comes back in x.dtype, the state in f32, as from
+    ``ssd_chunked``."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     tensors = (x, dt, a_log, B, C) + (
         () if initial_state is None else (initial_state,))
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("sage_ssd_scan takes float32 inputs")
+    if any(t.dtype not in KERNEL_DTYPES for t in tensors):
+        raise TypeError(f"sage_ssd_scan takes float32 or bfloat16 inputs, "
+                        f"got {sorted({str(t.dtype) for t in tensors})}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("sage_ssd_scan takes contiguous inputs")
+    out_dtype = x.dtype
+    x, dt, a_log, B, C = (t.float() for t in (x, dt, a_log, B, C))
+    if initial_state is not None:
+        initial_state = initial_state.float()
+    tensors = (x, dt, a_log, B, C) + (
+        () if initial_state is None else (initial_state,))
     if any(t.data_ptr() % 16 for t in tensors[3:]):
         raise ValueError("sage_ssd_scan loads B, C and the initial state "
                          "as float4: each must start on 16 bytes")
@@ -211,4 +230,4 @@ def _launch(x, dt, a_log, B, C, initial_state):
             torch.cuda.current_stream(x.device).cuda_stream)
     _ext.check(lib, err, "ssd_scan")
     count_launch("ssd_scan")
-    return y, final
+    return y.to(out_dtype), final

@@ -13,10 +13,15 @@ offloaded to a StreamContext consumer that appends to the port's Clovis
         recurrentgemma-9b --smoke --device cpu --batch 4 --prompt-len 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \\
         mamba2-130m --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \\
+        whisper-large-v3 --smoke --device cpu
 
-On the card (the default device) drop ``--device cpu``;
-``chip_smoke.py``'s ``[serve]`` and ``[serve-ssm]`` phases serve the
-full-width recurrentgemma-9b and mamba2-130m.
+whisper-large-v3 and llama-3.2-vision-90b take the stub frontends'
+embeddings, drawn after the prompts from the same numpy generator (seed
+0), as the reference's ``main`` draws them: ``frames`` (batch,
+encoder_seq, d) and ``image_embeds`` (batch, n_image_tokens, d).  On the
+card (the default device) drop ``--device cpu``; ``chip_smoke.py``'s
+``[serve*]`` phases serve the full-width models.
 """
 from __future__ import annotations
 
@@ -62,9 +67,11 @@ class Server:
     def generate(self, tokens: np.ndarray, gen: int, extra=None, *,
                  keep_logits: bool = False):
         """tokens: (batch, prompt_len) ints -> ((batch, gen) int32, stats).
-        With ``keep_logits`` the stats also hold ``logits``: the f32
-        (batch, vocab) logits of the prefill and of every decode step, on
-        the device."""
+        ``extra``: more batch inputs (``frames``, ``image_embeds``; numpy
+        arrays or tensors), moved to the server's device.  With
+        ``keep_logits`` the stats also hold ``logits``: the f32 (batch,
+        vocab) logits of the prefill and of every decode step, on the
+        device."""
         b, plen = tokens.shape
         cache = mdl.init_decode_state(
             self.cfg, b, self.max_len, device=self.device,
@@ -72,8 +79,8 @@ class Server:
             else torch.bfloat16)
         batch = {"tokens": torch.as_tensor(np.asarray(tokens),
                                            dtype=torch.long)}
-        if extra:
-            batch.update(extra)
+        for k, v in (extra or {}).items():
+            batch[k] = torch.as_tensor(v).to(self.device)
         self._sync()
         t0 = time.time()
         logits, cache = mdl.prefill(self.params, batch, self.cfg, cache,
@@ -130,7 +137,14 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_real,
                            (args.batch, args.prompt_len)).astype(np.int32)
-    out, stats = srv.generate(prompts, args.gen)
+    extra = {}
+    if cfg.is_encoder_decoder:
+        extra["frames"] = rng.standard_normal(
+            (args.batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.cross_attn_period:
+        extra["image_embeds"] = rng.standard_normal(
+            (args.batch, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    out, stats = srv.generate(prompts, args.gen, extra=extra)
     print(f"generated {out.shape} tokens; "
           f"prefill {stats['prefill_s']*1e3:.1f}ms, "
           f"decode {stats['tok_per_s']:.1f} tok/s")

@@ -1,5 +1,6 @@
 """Grouped-query attention: global / sliding-window self attention with
-ring-buffer KV caches (the port of ``repro.models.attention``).
+ring-buffer KV caches, bidirectional attention and cross attention (the
+port of ``repro.models.attention``).
 
 Three execution paths with identical semantics, as in the reference:
   * ``attend_dense``    — materialised scores; short sequences and decode.
@@ -7,26 +8,27 @@ Three execution paths with identical semantics, as in the reference:
   * flash attention     — ``repro_torch.kernels.flash_attention`` (B5): the
                           hand-written CUDA kernel on the card, its plain
                           version on the CPU.  Prefill takes it unless the
-                          caller passes ``use_kernels=False``.
+                          caller passes ``use_kernels=False``: causal for
+                          self attention, non-causal where every query
+                          sees every key (``attend_unmasked``: whisper's
+                          encoder, cross attention).
 
 Caches are fixed-size ring buffers: ``k/v`` of length ``W`` plus a ``pos``
 vector holding the absolute position stored in each slot (-1 = empty).
 For global attention W = max_len; for sliding-window layers W = window.
 Unlike the reference, decode writes its slot in place (the port's caches
 are not shared), which saves a copy of the cache per token.
-
-Cross attention (vision, encoder-decoder) waits for its slice (ROADMAP A11).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.attention import flash_attention
-from repro_torch.models.common import apply_rope, dense_init, softcap
+from repro_torch.models.common import apply_rope, dense_init, rms_norm, softcap
 
 NEG_INF = -2.0e38  # fp32-safe mask value
 
@@ -73,9 +75,10 @@ def _place_heads(w_real: torch.Tensor, qmap, axis: int) -> torch.Tensor:
     return torch.stack(parts, dim=axis)
 
 
-def init_attention(gen, cfg: ModelConfig, *, dtype=torch.float32,
-                   device=None) -> Dict:
-    """QKVO projections (+ optional biases)."""
+def init_attention(gen, cfg: ModelConfig, *, cross: bool = False,
+                   dtype=torch.float32, device=None) -> Dict:
+    """QKVO projections (+ optional biases; ``cross``: llama-3.2-vision's
+    q/k RMS norms and tanh gate on the output, the gate at 0)."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     hr, kvr = cfg.n_heads_real, cfg.n_kv_heads_real
     kw = dict(dtype=dtype, device=device)
@@ -94,6 +97,10 @@ def init_attention(gen, cfg: ModelConfig, *, dtype=torch.float32,
         p["bq"] = torch.zeros((h, hd), **kw)
         p["bk"] = torch.zeros((kv, hd), **kw)
         p["bv"] = torch.zeros((kv, hd), **kw)
+    if cross:
+        p["q_norm"] = torch.ones((hd,), **kw)
+        p["k_norm"] = torch.ones((hd,), **kw)
+        p["gate"] = torch.zeros((), **kw)
     return p
 
 
@@ -187,12 +194,15 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Layer-level forward (full sequence)
 # --------------------------------------------------------------------------
 
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d) @ w (d, heads, hd) -> (..., heads, hd) in x.dtype."""
+    w = w.to(x.dtype)
+    return torch.matmul(x, w.reshape(w.shape[0], -1)).reshape(
+        *x.shape[:-1], w.shape[1], w.shape[2])
+
+
 def _project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig):
-    def proj(w):
-        w = w.to(x.dtype)
-        return torch.matmul(x, w.reshape(w.shape[0], -1)).reshape(
-            *x.shape[:-1], w.shape[1], w.shape[2])
-    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -227,6 +237,19 @@ def _attend(q, k, v, pos, cfg: ModelConfig, window: int,
     return attend_dense(q, k, v, mask, cfg)
 
 
+def attend_unmasked(q, k, v, cfg: ModelConfig, *,
+                    use_kernels: bool) -> torch.Tensor:
+    """Every query sees every key (whisper's encoder, cross attention):
+    B5 non-causal, or the reference's ``attend_dense`` under an all-true
+    mask."""
+    if use_kernels:
+        return flash_attention(q, k, v, scale=_scale(cfg), causal=False,
+                               softcap=cfg.attn_softcap)
+    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    return attend_dense(q, k, v, mask, cfg)
+
+
 def self_attention(p: Dict, x: torch.Tensor, positions: torch.Tensor,
                    cfg: ModelConfig, *, window: int = 0,
                    use_rope: bool = True,
@@ -239,6 +262,41 @@ def self_attention(p: Dict, x: torch.Tensor, positions: torch.Tensor,
     pos = positions[0] if positions.dim() == 2 else positions
     out = _attend(q, k, v, pos, cfg, window, use_kernels)
     return _out_proj(p, out, x)
+
+
+def cross_attention(p: Dict, x: torch.Tensor,
+                    memory: Optional[torch.Tensor], cfg: ModelConfig, *,
+                    gated: bool = False,
+                    kv_override: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
+                    use_kernels: bool = False) -> torch.Tensor:
+    """Encoder-decoder / vision cross attention (no mask, no rope); the
+    memory's K/V are ``kv_override`` where given.  ``gated``: q and k
+    RMS-normed per head, the output scaled by tanh(gate)."""
+    q = _proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    k, v = (kv_override if kv_override is not None
+            else cross_kv(p, memory, cfg, x.dtype))
+    if gated:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    out = _out_proj(p, attend_unmasked(q, k, v, cfg,
+                                       use_kernels=use_kernels), x)
+    if gated:
+        out = torch.tanh(p["gate"].to(x.dtype)) * out
+    return out
+
+
+def cross_kv(p: Dict, memory: torch.Tensor, cfg: ModelConfig, dtype
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The memory's cross-attention K/V (cached at prefill)."""
+    m = memory.to(dtype)
+    k, v = _proj(m, p["wk"]), _proj(m, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"].to(dtype)
+        v = v + p["bv"].to(dtype)
+    return k, v
 
 
 # --------------------------------------------------------------------------

@@ -6,6 +6,7 @@
                                                   mtp where the model has
                                                   it, tokens, loss)
   make_batch(seed, cfg, batch, seq)            -> numpy tokens/labels
+                                                  (+ frames / image_embeds)
   init_decode_state(cfg, batch, max_len, ...)  -> cache tree
   prefill(params, batch, cfg, cache)           -> (last-token logits, cache)
   decode_step(params, token, position, cfg, cache) -> (logits, cache)
@@ -18,8 +19,15 @@ through host memory.  The numbers differ from the reference's
 ``jax.random`` draws; ``models.convert.params_from_jax`` carries the
 reference's own parameters over where the two must agree.
 
-Batches are dicts of (batch, seq) token ids, numpy arrays or tensors;
-each entry point moves them to the parameters' device.
+Batches are dicts of (batch, seq) token ids, numpy arrays or tensors,
+plus whisper's ``frames`` (batch, encoder_seq, d) or llama-3.2-vision's
+``image_embeds`` (batch, n_image_tokens, d): the stub frontends'
+precomputed embeddings, the memory that cross attention reads.  Each
+entry point moves them to the parameters' device.  The memory is
+computed only where a block of the stack reads it: whisper's decoder as
+configured is plain ``global`` blocks, so its prefill never runs the
+encoder, which gives the reference's jitted logits (XLA drops the
+encoder there as dead code; ROADMAP C20).  ``_encode`` runs it.
 """
 from __future__ import annotations
 
@@ -33,11 +41,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import common
 from repro_torch.models.common import dense_init, embed_init
-from repro_torch.models.transformer import (apply_norm, block_forward,
-                                            check_config, init_block,
-                                            init_norm, init_stack,
-                                            init_stack_cache, stack_step,
-                                            stack_forward_train)
+from repro_torch.models.transformer import (ENCODER, apply_norm,
+                                            block_forward, check_config,
+                                            init_block, init_norm,
+                                            init_stack, init_stack_cache,
+                                            reads_memory, sinusoid_positions,
+                                            stack_step, stack_forward_train)
 from repro_torch.tree import leaves
 
 MTP_LOSS_WEIGHT = 0.3
@@ -45,6 +54,13 @@ MTP_LOSS_WEIGHT = 0.3
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """Whisper's encoder: ``n_encoder_layers`` bidirectional blocks."""
+    return cfg.scaled(n_layers=cfg.n_encoder_layers,
+                      attn_pattern=(ENCODER,), n_experts=0,
+                      n_dense_layers=0, is_encoder_decoder=False)
 
 
 # --------------------------------------------------------------------------
@@ -62,6 +78,10 @@ def _init(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                        **kw)
+    if cfg.is_encoder_decoder:
+        ecfg = _encoder_cfg(cfg)
+        params["encoder"] = {"stack": init_stack(gen, ecfg, **kw),
+                             "ln_f": init_norm(ecfg, **kw)}
     if cfg.mtp_depth > 0:
         # DeepSeek multi-token prediction: its block is layer n_layers
         params["mtp"] = {
@@ -136,12 +156,35 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return logits
 
 
-def _check_batch(batch: Dict):
-    extra = sorted(set(batch) - {"tokens", "labels"})
-    if extra:
-        raise NotImplementedError(
-            f"batch inputs {extra} (encoder frames / image embeddings) wait "
-            f"for the encoder-decoder and vision slices (ROADMAP A11)")
+def _encode(params, frames, cfg: ModelConfig, *,
+            use_kernels: bool = True) -> torch.Tensor:
+    """Whisper's encoder over the stub frontend's frame embeddings (b,
+    frames, d) -> (b, frames, d) in the compute dtype; ``use_kernels``
+    runs its attention through B5 (non-causal)."""
+    ecfg = _encoder_cfg(cfg)
+    dev = params["embed"].device
+    x = torch.as_tensor(frames).to(dev, compute_dtype(cfg))
+    x = x + sinusoid_positions(x.shape[1], cfg.d_model, x.dtype, dev)[None]
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=dev)[None]
+    x, _ = stack_forward_train(params["encoder"]["stack"], x, ecfg,
+                               positions=positions, use_kernels=use_kernels)
+    return apply_norm(params["encoder"]["ln_f"], x, ecfg)
+
+
+def _memory(params, batch: Dict, cfg: ModelConfig, use_kernels: bool):
+    """What the cross-attention blocks read: the encoder's output over
+    ``frames`` or the ``image_embeds``; None where no block reads one."""
+    if not reads_memory(cfg):
+        return None
+    key = "frames" if cfg.is_encoder_decoder else "image_embeds"
+    if key not in batch:
+        raise ValueError(f"{cfg.name} attends to a memory: the batch needs "
+                         f"{key!r}")
+    if cfg.is_encoder_decoder:
+        return _encode(params, batch[key], cfg, use_kernels=use_kernels)
+    return torch.as_tensor(batch[key]).to(params["embed"].device,
+                                          compute_dtype(cfg))
 
 
 def _tokens(batch: Dict, key: str, dev: torch.device) -> torch.Tensor:
@@ -162,7 +205,6 @@ def forward_train(params, batch: Dict, cfg: ModelConfig, *,
     through ``kernels.grad``; False takes the reference's dense
     attention, log-depth scan and chunked SSD.  ``moe_dense_oracle``
     runs every MoE layer through the dense oracle."""
-    _check_batch(batch)
     dev = params["embed"].device
     tokens = _tokens(batch, "tokens", dev)
     b, s = tokens.shape
@@ -170,8 +212,10 @@ def forward_train(params, batch: Dict, cfg: ModelConfig, *,
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None] \
         .expand(b, s)
     x, aux = stack_forward_train(params["decoder"], x, cfg,
-                                 positions=positions, remat=remat,
-                                 use_kernels=use_kernels,
+                                 positions=positions,
+                                 memory=_memory(params, batch, cfg,
+                                                use_kernels),
+                                 remat=remat, use_kernels=use_kernels,
                                  moe_dense_oracle=moe_dense_oracle)
     return _logits(params, x, cfg), aux, x
 
@@ -233,13 +277,22 @@ def loss_fn(params, batch: Dict, cfg: ModelConfig, *, remat: str = "none",
 def make_batch(seed: int, cfg: ModelConfig, batch: int, seq: int
                ) -> Dict[str, np.ndarray]:
     """A random training batch from a numpy seed: tokens uniform over the
-    real vocabulary, labels the next token (-1 at the end).  The
-    reference draws from a ``jax.random`` key, so the two differ."""
-    toks = np.random.default_rng(seed).integers(
-        0, cfg.vocab_real, (batch, seq)).astype(np.int32)
+    real vocabulary, labels the next token (-1 at the end), and for
+    whisper ``frames`` (batch, encoder_seq, d), for llama-3.2-vision
+    ``image_embeds`` (batch, n_image_tokens, d), standard normal in f32.
+    The reference draws from a ``jax.random`` key, so the two differ."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_real, (batch, seq)).astype(np.int32)
     labels = np.concatenate([toks[:, 1:], np.full((batch, 1), -1, np.int32)],
                             axis=1)
-    return {"tokens": toks, "labels": labels}
+    out = {"tokens": toks, "labels": labels}
+    if cfg.is_encoder_decoder:
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.cross_attn_period:
+        out["image_embeds"] = rng.standard_normal(
+            (batch, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -260,7 +313,6 @@ def prefill(params, batch: Dict, cfg: ModelConfig, cache: Dict, *,
     and the scans through B5, B6 and B7 (their plain versions on the
     CPU); False takes the reference's dense/chunked attention, log-depth
     scan and chunked SSD instead."""
-    _check_batch(batch)
     tokens = torch.as_tensor(batch["tokens"])
     b, s = tokens.shape
     dev = params["embed"].device
@@ -268,7 +320,9 @@ def prefill(params, batch: Dict, cfg: ModelConfig, cache: Dict, *,
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None] \
         .expand(b, s)
     x, cache = stack_step(params["decoder"], cache, x, cfg, mode="prefill",
-                          positions=positions, use_kernels=use_kernels)
+                          positions=positions,
+                          memory=_memory(params, batch, cfg, use_kernels),
+                          use_kernels=use_kernels)
     return _logits(params, x[:, -1:], cfg)[:, 0], cache
 
 

@@ -390,7 +390,17 @@ ATTN_CASES = [(4, 16, 1, 4000, 4000, 256, True, 2048, 0.0),
               (2, 4, 2, 77, 1001, 256, False, 0, 30.0),
               (1, 8, 2, 250, 250, 256, True, 17, 0.0),
               # qwen2-moe-a2.7b's prefill: MHA, hd 128, causal, no window
-              (4, 16, 16, 4000, 4000, 128, True, 0, 0.0)]
+              (4, 16, 16, 4000, 4000, 128, True, 0, 0.0),
+              # smaller forms of the encoder / cross-attention shapes:
+              # whisper's encoder (non-causal, hd 64) and decoder (causal
+              # MHA), the encdec cross attention (sq < sk), vision's GQA
+              # self attention (8 heads a kv head, hd 128) and its cross
+              # attention (sq != sk, non-causal)
+              (2, 4, 4, 300, 300, 64, False, 0, 0.0),
+              (2, 4, 4, 96, 96, 64, True, 0, 0.0),
+              (2, 4, 4, 96, 300, 64, False, 0, 0.0),
+              (1, 16, 2, 256, 256, 128, True, 0, 0.0),
+              (1, 16, 2, 256, 321, 128, False, 0, 0.0)]
 
 
 @pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal,window,softcap", ATTN_CASES)
@@ -413,6 +423,34 @@ def test_flash_attention_kernel_matches_plain(dev, b, h, kv, sq, sk, hd,
     assert got.shape == want.shape and got.dtype == torch.float32
     row = want.abs().amax(-1, keepdim=True)
     assert bool(((got - want).abs() <= 1e-4 * row).all())
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal", [
+    (2, 4, 4, 300, 300, 64, False), (1, 16, 2, 256, 256, 128, True),
+    (1, 16, 2, 256, 321, 128, False)])
+def test_flash_attention_kernel_takes_bf16(dev, b, h, kv, sq, sk, hd,
+                                           causal):
+    """bf16 q, k, v (the models' default dtype, C18): one launch, a bf16
+    output within 1e-4 of the row's max |o| plus one bf16 rounding (2^-8
+    of |o|) of the plain version's f32 result on the same values."""
+    from repro_torch import _ext
+    from repro_torch.kernels import (flash_attention_kernel,
+                                     flash_attention_plain)
+    g = torch.Generator(device=dev)
+    g.manual_seed(sq + hd)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).bfloat16()
+               for shape in ((b, h, sq, hd), (b, kv, sk, hd),
+                             (b, kv, sk, hd)))
+    kw = dict(scale=hd ** -0.5, causal=causal)
+    _ext.reset_launch_counts()
+    got = flash_attention_kernel(q, k, v, **kw)
+    assert _ext.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == torch.bfloat16
+    assert flash_attention_plain(q, k, v, **kw).dtype == torch.bfloat16
+    want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    row = want.abs().amax(-1, keepdim=True)
+    err = (got.float() - want).abs()
+    assert bool((err <= 1e-4 * row + 2.0 ** -8 * want.abs()).all())
 
 
 def test_flash_attention_kernel_refuses_rows_off_16_bytes(dev):
@@ -528,6 +566,42 @@ def test_ssd_kernel_matches_plain(dev, b, s, h, p, n, g, chunk, with_state):
         assert bool(((gt - w).abs() <= 1e-4 * scale).all())
 
 
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_kernel_takes_bf16(dev, with_state):
+    """bf16 x, B, C and state (C18): one launch, y in bf16 and the state
+    in f32, as ``ssd_chunked`` gives them; y within 1e-4 of the (batch,
+    head)'s max plus one bf16 rounding (2^-8 of |y|) of the plain
+    version's f32 result on the same values, the state within 1e-4."""
+    from repro_torch import _ext
+    from repro_torch.kernels import ssd
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    b, s, h, p, n = 2, 300, 8, 64, 128
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).bfloat16()
+    x, B, C = r(b, s, h, p), r(b, s, 1, n, scale=0.5), \
+        r(b, s, 1, n, scale=0.5)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (b, s, h), generator=gen, device=dev))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    s0 = r(b, h, p, n, scale=0.5) if with_state else None
+    _ext.reset_launch_counts()
+    y, final = ssd.ssd_scan(x, dt, a_log, B, C, initial_state=s0)
+    assert _ext.LAUNCHES["ssd_scan"] == 1
+    py, pf = ssd.ssd_chunked(x, dt, a_log, B, C, 256, s0)
+    assert (y.dtype, final.dtype) == (py.dtype, pf.dtype) == (
+        torch.bfloat16, torch.float32)
+    wy, wf = ssd.ssd_chunked(x.float(), dt, a_log, B.float(), C.float(),
+                             256, None if s0 is None else s0.float())
+    scale = wy.abs().amax(dim=(1, 3), keepdim=True)
+    assert bool(((y.float() - wy).abs() <= 1e-4 * scale
+                 + 2.0 ** -8 * wy.abs()).all())
+    fscale = wf.abs().amax(dim=(2, 3), keepdim=True)
+    assert bool(((final - wf).abs() <= 1e-4 * fscale).all())
+
+
 @pytest.mark.parametrize("const,value", [("KERNEL_CHUNK", 128),
                                          ("KERNEL_SUB", 32)])
 def test_ssd_kernel_refuses_scratch_of_other_steps(dev, monkeypatch, const,
@@ -584,7 +658,10 @@ def test_mamba2_server_kernel_path_matches_plain_path_on_cuda(dev, tmp_path):
 GRAD_RTOL = 1e-3
 
 
-def _grads_match(dev, kernel_fn, plain_fn, inputs, launches_name):
+def _grads_match(dev, kernel_fn, plain_fn, inputs, launches_name,
+                 dtype=torch.float32):
+    """``dtype``: each gradient's dtype must be its input's, and both
+    paths' must be ``dtype`` where it is given."""
     from repro_torch import _ext
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -603,9 +680,11 @@ def _grads_match(dev, kernel_fn, plain_fn, inputs, launches_name):
     pg = torch.autograd.grad(sum((o * w).sum() for o, w in zip(pout, ws)),
                              pin)
     assert _ext.LAUNCHES[launches_name] == 1      # the backward launches none
-    for k, p in zip(kg, pg):
-        scale = float(p.abs().max())
-        assert float((k - p).abs().max()) <= GRAD_RTOL * scale
+    for k, p, t in zip(kg, pg, inputs):
+        assert k.dtype == p.dtype == t.dtype
+        assert dtype is None or k.dtype == dtype
+        scale = float(p.float().abs().max())
+        assert float((k.float() - p.float()).abs().max()) <= GRAD_RTOL * scale
 
 
 @pytest.mark.parametrize("causal,window,softcap,kv",
@@ -668,6 +747,35 @@ def test_ssd_gradient_matches_plain(dev, b, s, h, p, n, g, chunk,
         lambda *t: KS.ssd_chunked(*t[:5], chunk,
                                   t[5] if with_state else None),
         inputs, "ssd_scan")
+
+
+def test_bf16_gradients_through_b5_and_b6(dev):
+    """bf16 inputs that require grad: the kernel forward, the plain
+    recompute in the backward, and every gradient in bf16 (each input's
+    dtype), as the plain path's."""
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import ssd as KS
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    b, h, s, hd = 2, 4, 130, 64
+    q, k, v = (torch.randn(shape, generator=g, device=dev).bfloat16()
+               for shape in ((b, s, h, hd), (b, s, 2, hd), (b, s, 2, hd)))
+    kw = dict(scale=hd ** -0.5, causal=True)
+
+    def plain(q, k, v):
+        return KA.flash_attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            **kw).transpose(1, 2)
+    _grads_match(dev, lambda q, k, v: KA.flash_attention(q, k, v, **kw),
+                 plain, [q, k, v], "flash_attention", dtype=torch.bfloat16)
+    x = torch.randn((1, 77, 4, 32), generator=g, device=dev).bfloat16()
+    dt = torch.rand((1, 77, 4), generator=g, device=dev) * 0.1
+    a_log = torch.randn(4, generator=g, device=dev) * 0.5
+    B, C = (torch.randn((1, 77, 2, 16), generator=g, device=dev
+                        ).bfloat16() * 0.3 for _ in range(2))
+    _grads_match(dev, lambda *t: KS.ssd_scan(*t, chunk=16),
+                 lambda *t: KS.ssd_chunked(*t, 16), [x, dt, a_log, B, C],
+                 "ssd_scan", dtype=None)
 
 
 def test_wrappers_without_grad_keep_their_path(dev):
@@ -807,3 +915,118 @@ def test_moe_server_kernel_path_matches_plain_path_on_cuda(dev, tmp_path):
     np.testing.assert_array_equal(out_k, out_p)
     for a, b in zip(st_k["logits"], st_p["logits"]):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the encoder, encoder-decoder and cross-attention families served on the
+# card (head_dim 64, which B5 takes): the kernel path against the plain
+# path on the same weights, logits within 1e-3 of the step's largest
+# |logit| and the same greedy tokens; and C18's acceptance, a bf16 mamba2
+# served through B6 against the plain path in bf16
+# ---------------------------------------------------------------------------
+
+def _serve_both(dev, tmp_path, cfg, params, prompts, extra, gen=6):
+    from repro_torch import _ext
+    from repro_torch.launch.serve import Server
+    runs = []
+    for use_kernels in (True, False):
+        srv = Server(cfg, tmp_path / str(use_kernels), device=dev,
+                     use_kernels=use_kernels, max_len=prompts.shape[1] + 16,
+                     params=params)
+        _ext.reset_launch_counts()
+        out, st = srv.generate(prompts, gen, extra=extra, keep_logits=True)
+        st["launches"] = dict(_ext.LAUNCHES)
+        srv.close()
+        runs.append((out, st))
+    return runs
+
+
+@pytest.mark.parametrize("pattern,launches", [(("global",), 2),
+                                              (("encdec",), 2 + 2 * 2)])
+def test_whisper_server_kernel_path_matches_plain_path_on_cuda(
+        dev, tmp_path, pattern, launches):
+    """A narrow whisper served on the card: as configured (the decoder's
+    2 self-attention layers launch B5; the encoder is never read) and
+    with ``encdec`` blocks (the encoder's 2 layers, then each decoder
+    layer's self and cross attention)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as mdl
+    cfg = get_smoke_config("whisper-large-v3").scaled(
+        dtype="float32", head_dim=64, encoder_seq=150, attn_pattern=pattern)
+    params = mdl.init_params(cfg, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_real, (3, 40)).astype(np.int32)
+    extra = {"frames": rng.standard_normal(
+        (3, cfg.encoder_seq, cfg.d_model)).astype(np.float32)}
+    (out_k, st_k), (out_p, st_p) = _serve_both(dev, tmp_path, cfg, params,
+                                               prompts, extra)
+    assert st_k["launches"]["flash_attention"] == launches
+    assert sum(st_p["launches"].values()) == 0
+    np.testing.assert_array_equal(out_k, out_p)
+    for a, b in zip(st_k["logits"], st_p["logits"]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+def test_vision_server_kernel_path_matches_plain_path_on_cuda(dev, tmp_path):
+    """A narrow llama-3.2-vision (10 layers: 8 global and 2 gated cross)
+    served on the card with both gates of each cross layer at 0.5 (they
+    start at 0, which makes the layer the identity): B5 once per layer
+    in the prefill, the plain path's tokens and logits; other image
+    embeddings move the logits."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as mdl
+    cfg = get_smoke_config("llama-3.2-vision-90b").scaled(
+        dtype="float32", head_dim=64, n_layers=10, n_image_tokens=101)
+    params = mdl.init_params(cfg, device=dev)
+    for bp in params["decoder"]["unrolled"]:
+        if "mlp_gate" in bp:
+            bp["mlp_gate"].fill_(0.5)
+            bp["mixer"]["gate"].fill_(0.5)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_real, (3, 40)).astype(np.int32)
+    embeds = [rng.standard_normal((3, cfg.n_image_tokens, cfg.d_model)
+                                  ).astype(np.float32) for _ in range(2)]
+    (out_k, st_k), (out_p, st_p) = _serve_both(
+        dev, tmp_path, cfg, params, prompts, {"image_embeds": embeds[0]})
+    assert st_k["launches"]["flash_attention"] == 10
+    assert sum(st_p["launches"].values()) == 0
+    np.testing.assert_array_equal(out_k, out_p)
+    for a, b in zip(st_k["logits"], st_p["logits"]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    cache = mdl.init_decode_state(cfg, 3, 48, dtype=torch.float32,
+                                  device=dev)
+    other, _ = mdl.prefill(params, {"tokens": prompts,
+                                    "image_embeds": embeds[1]}, cfg, cache)
+    first = st_k["logits"][0]
+    assert float((other - first).abs().max()) > 1e-2 * float(
+        first.abs().max())
+
+
+def test_mamba2_bf16_server_kernel_path_matches_plain_path_on_cuda(
+        dev, tmp_path):
+    """C18's acceptance: a narrow 3-layer mamba2 in its config's default
+    bf16 served through B6 (bf16 x, B, C cast to f32 for the kernel)
+    against the plain path in bf16 on the same weights: B6 once per
+    layer, logits within 3e-2 of the step's largest |logit| (both round
+    their activations to bf16, 2^-8, between layers, in other places),
+    and the same prefill token wherever the plain path's top two differ
+    by more than that."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as mdl
+    cfg = get_smoke_config("mamba2-130m").scaled(
+        n_layers=3, d_model=128, ssm_state=32, ssm_headdim=32, ssm_chunk=64)
+    assert cfg.dtype == "bfloat16"
+    params = mdl.init_params(cfg, device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_real, (3, 150)).astype(np.int32)
+    (out_k, st_k), (out_p, st_p) = _serve_both(dev, tmp_path, cfg, params,
+                                               prompts, None)
+    assert st_k["launches"]["ssd_scan"] == 3
+    assert sum(st_p["launches"].values()) == 0
+    for a, b in zip(st_k["logits"], st_p["logits"]):
+        assert a.dtype == torch.float32
+        assert float((a - b).abs().max()) <= 3e-2 * float(b.abs().max())
+    first_k, first_p = st_k["logits"][0], st_p["logits"][0]
+    top2 = first_p.topk(2, dim=-1).values
+    wide = (top2[:, 0] - top2[:, 1]) > 3e-2 * float(first_p.abs().max())
+    assert torch.equal(first_k.argmax(-1)[wide], first_p.argmax(-1)[wide])

@@ -323,20 +323,22 @@ def test_count_params_full_config():
     assert get_config(ARCH).param_count() == n
 
 
-def test_unported_kinds_raise():
-    for arch in ("whisper-large-v3", "llama-3.2-vision-90b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            mdl.init_params(get_smoke_config(arch), device="cpu")
+def test_unknown_block_kind_raises():
+    """Every block kind of the reference is ported; a kind that is none
+    of them is refused by the config check, the init and the forward."""
     jcfg, cfg = _cfgs()
+    with pytest.raises(ValueError, match="unknown block kind"):
+        mdl.init_params(cfg.scaled(attn_pattern=("global", "moba")),
+                        device="cpu")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        tfm.init_block(None, cfg, "moba", 0, device="meta")
+    with pytest.raises(ValueError, match="pos_embedding"):
+        mdl.init_params(cfg.scaled(pos_embedding="sinusoid"), device="cpu")
     params = mdl.init_params(cfg, device="cpu")
-    cache = mdl.init_decode_state(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mdl.prefill(params, {"tokens": np.zeros((1, 4), np.int32),
-                             "frames": None}, cfg, cache)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mdl.loss_fn(params, {"tokens": np.zeros((1, 4), np.int32),
-                             "labels": np.zeros((1, 4), np.int32),
-                             "image_embeds": None}, cfg)
+    with pytest.raises(ValueError, match="unknown block kind"):
+        tfm.block_forward(params["decoder"]["unrolled"][0],
+                          torch.zeros(1, 2, cfg.d_model), cfg, "moba",
+                          mode="train")
     # the train mode of the ported kinds runs (tests/test_torch_train.py
     # holds it to the reference)
     out, aux, cache = tfm.block_forward(params["decoder"]["unrolled"][0],

@@ -10,6 +10,14 @@ summed in another order); against the sequential ``ssd_reference``
 within ``SEQ_TOL`` (atol 2e-4, rtol 1e-3, the reference's own
 ``tests/test_models.py`` tolerance: the chunked form rounds its decays
 differently); logits within ``LOGIT_TOL`` (atol 2e-4, rtol 1e-4).
+
+In the configs' own bf16 both packages round every op to bf16, at other
+places (the port's SSD sums in f32, its silu rounds once), so the port's
+bf16 is held to the reference's bf16 by |a - b| / |b| over the whole
+output (the RMS of the difference over the RMS of the reference):
+within ``BF16_RMS`` of it, and no farther from the reference's f32 than
+``BF16_NOISE`` times the reference's own bf16 is (ROADMAP C23; the
+readings behind both limits are in PERF.md).
 """
 import jax
 import jax.numpy as jnp
@@ -34,6 +42,8 @@ from repro_torch.tree import leaves
 TOL = dict(atol=1e-4, rtol=1e-4)
 SEQ_TOL = dict(atol=2e-4, rtol=1e-3)
 LOGIT_TOL = dict(atol=2e-4, rtol=1e-4)
+BF16_RMS = dict(layer=1.5e-2, logits=3e-2)
+BF16_NOISE = 1.25
 ARCH = "mamba2-130m"
 
 
@@ -278,3 +288,122 @@ def test_count_params_full_config():
     """mamba2-130m at full width: 128,983,488, the reference's count."""
     n = mdl.count_params_analytic(get_config(ARCH))
     assert n == jmdl.count_params_analytic(jget_config(ARCH)) == 128_983_488
+
+
+# ---------------------------------------------------------------------------
+# bf16, the configs' default dtype, against the reference's bf16
+# ---------------------------------------------------------------------------
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _rms(a, b):
+    """|a - b| / |b| over every element, in f32."""
+    a, b = _f32(a), _f32(b)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _bf16_close(got16, want16, want32, limit):
+    """The port's bf16 within ``limit`` of the reference's bf16, and no
+    farther from the reference's f32 than ``BF16_NOISE`` times the
+    reference's bf16 is; each argument a list of arrays (steps), their
+    distances averaged and printed (``pytest -s`` shows them)."""
+    mean = [float(np.mean([_rms(a, b) for a, b in zip(x, y)]))
+            for x, y in ((got16, want16), (got16, want32), (want16, want32))]
+    print(f"bf16 |a - b| / |b|: port - reference {mean[0]:.3e}, port - "
+          f"reference f32 {mean[1]:.3e}, reference - reference f32 "
+          f"{mean[2]:.3e}")
+    assert mean[0] <= limit, mean
+    assert mean[1] <= BF16_NOISE * mean[2], mean
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_bf16_ssm_block_matches_reference_bf16(use_kernels):
+    """One Mamba2 mixer of mamba2-130m at full width (d 768, 24 heads,
+    state 128) over 256 tokens in bf16, against the reference's jitted
+    bf16 block on the same weights and input."""
+    jcfg, cfg = jget_config(ARCH), get_config(ARCH)
+    assert jcfg.dtype == cfg.dtype == "bfloat16"
+    jp, p = _layer(jcfg.scaled(dtype="float32"), 0)
+    x = np.random.default_rng(1).standard_normal(
+        (1, 256, cfg.d_model)).astype(np.float32)
+    want32 = jssm.ssm_block(jp, jnp.asarray(x), jcfg.scaled(dtype="float32"))
+    want16 = jax.jit(lambda p, x: jssm.ssm_block(p, x, jcfg))(
+        jp, jnp.asarray(x).astype(jnp.bfloat16))
+    got = ssm.ssm_block(p, torch.from_numpy(x).bfloat16(), cfg,
+                        use_kernels=use_kernels)
+    assert got.dtype == torch.bfloat16
+    _bf16_close([got], [want16], [want32], BF16_RMS["layer"])
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_bf16_prefill_and_decode_match_reference_bf16(use_kernels):
+    """The 3-layer mamba2 smoke model in bf16 (bf16 decode caches, the
+    SSM state f32 as in both packages): 64 prompt tokens (4 chunks) and
+    3 decode steps against the reference's jitted bf16 steps."""
+    j32, c32 = _cfgs(n_layers=3)
+    j16, c16 = _cfgs(n_layers=3, dtype="bfloat16")
+    jparams = jmdl.init_params(jax.random.key(3), j32)
+    params = convert.params_from_jax(jax.tree.map(np.asarray, jparams), c32,
+                                     device="cpu")
+    b, s = 2, 64
+    toks = np.random.default_rng(3).integers(
+        0, j32.vocab_real, (b, s + 3)).astype(np.int32)
+
+    def reference(jcfg, dtype):
+        prefill = jax.jit(lambda p, t, c: jmdl.prefill(p, {"tokens": t},
+                                                       jcfg, c))
+        decode = jax.jit(lambda p, t, i, c: jmdl.decode_step(p, t, i, jcfg,
+                                                             c))
+        cache = jmdl.init_decode_state(jcfg, b, s + 8, dtype=dtype)
+        lg, cache = prefill(jparams, jnp.asarray(toks[:, :s]), cache)
+        out = [lg]
+        for t in range(s, s + 3):
+            lg, cache = decode(jparams, jnp.asarray(toks[:, t:t + 1]),
+                               jnp.int32(t), cache)
+            out.append(lg)
+        return out
+
+    cache = mdl.init_decode_state(c16, b, s + 8, dtype=torch.bfloat16,
+                                  device="cpu")
+    lg, cache = mdl.prefill(params, {"tokens": toks[:, :s]}, c16, cache,
+                            use_kernels=use_kernels)
+    got = [lg]
+    for t in range(s, s + 3):
+        lg, cache = mdl.decode_step(params, torch.from_numpy(
+            toks[:, t:t + 1]), t, c16, cache)
+        got.append(lg)
+    _bf16_close(got, reference(j16, jnp.bfloat16),
+                reference(j32, jnp.float32), BF16_RMS["logits"])
+
+
+def test_bf16_full_model_no_noisier_than_reference():
+    """mamba2-130m at full width and depth (24 layers) in bf16 over 512
+    tokens, every position's logits: bf16 noise grows ~0.01 a layer in
+    both packages (ROADMAP C23), so at full depth the port's bf16 is one
+    more sample of it.  It must be no farther from the reference's f32,
+    and no farther from the reference's bf16, than ``BF16_NOISE`` times
+    the reference's bf16 is from its f32."""
+    jcfg, cfg = jget_config(ARCH), get_config(ARCH)
+    j32, c32 = jcfg.scaled(dtype="float32"), cfg.scaled(dtype="float32")
+    jparams = jmdl.init_params(jax.random.key(0), j32)
+    params = convert.params_from_jax(jax.tree.map(np.asarray, jparams), c32,
+                                     device="cpu")
+    toks = np.random.default_rng(0).integers(
+        0, jcfg.vocab_real, (1, 512)).astype(np.int32)
+    want = {c.dtype: jax.jit(lambda p, t, c=c: jmdl.forward_train(
+        p, {"tokens": t}, c)[0])(jparams, jnp.asarray(toks))
+        for c in (jcfg, j32)}
+    with torch.no_grad():
+        got = mdl.forward_train(params, {"tokens": toks}, cfg)[0]
+    port_ref, port_f32, ref_f32 = (
+        _rms(got, want["bfloat16"]), _rms(got, want["float32"]),
+        _rms(want["bfloat16"], want["float32"]))
+    print(f"bf16 |a - b| / |b| over 512 x {cfg.vocab_size} logits: port - "
+          f"reference {port_ref:.3e}, port - reference f32 {port_f32:.3e}, "
+          f"reference - reference f32 {ref_f32:.3e}")
+    assert port_f32 <= BF16_NOISE * ref_f32
+    assert port_ref <= BF16_NOISE * ref_f32
