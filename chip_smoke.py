@@ -133,16 +133,34 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
    checkpoint of the whole state (params, m, v) with each of the
    collective, window and stream strategies, each restored bit for bit,
    and three steps timed with CUDA events (forward, backward,
-   optimizer); last, B6 at the train shape held against ``ssd_chunked``
-   on the same inputs (y and final state within ``SSD_RTOL`` of each
-   (batch, head)'s largest |value|) and timed.
-9. One JSON line of per-kernel numbers, then the contract's last line.
+   optimizer), B6's calls inside ``loss_fn`` timed and counted (24 a
+   forward, equal to its launches, or the phase fails); last, B6 at the
+   train shape held against ``ssd_chunked`` on the same inputs (y and
+   final state within ``SSD_RTOL`` of each (batch, head)'s largest
+   |value|) and timed.
+9. ``[dist]``: qwen2.5-32b at full width (d_model 5,120, 40 heads over
+   8 KV heads, hd 128, d_ff 27,648, vocab 152,064) cut to 2 of its 64
+   layers (2,532,350,976 f32 parameters), 2 x 2,048 tokens a step from
+   a Clovis corpus, 3 steps through the plain ``Trainer`` and then,
+   from the same seed on the same batches, through the ``Trainer`` on a
+   world-size-1 NCCL process group's 1 x 1 ``("data", "model")`` mesh
+   (``DTensor`` parameters and AdamW state): the losses within
+   ``DIST_LOSS_RTOL`` relative, B5 two launches a forward (GQA 40 over
+   8, checked in ``[model-kernels]`` first).  The dry run of the same
+   cell on a fake 1 x 1 group (``repro_torch.launch.dryrun``) must hold
+   the state the mesh Trainer holds on the card, byte for byte; the
+   roofline (``launch.analysis``) of this step and of ``[train]``'s,
+   each counted on ``meta`` through the kernels' plain versions, beside
+   the measured step, the model-FLOPs share at f32's 67 TFLOP/s and the
+   card's name and power limit.
+10. One JSON line of per-kernel numbers, then the contract's last line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
 from __future__ import annotations
 
 import contextlib
+import datetime
 import hashlib
 import importlib.util
 import json
@@ -222,6 +240,13 @@ TRAIN_STEPS, TRAIN_RESTART, TRAIN_TIMED_STEPS = 40, 20, 3
 TRAIN_GRAD_RTOL = 1e-3         # kernel vs plain gradient, of the leaf's max |g|
 TRAIN_LOSS_RTOL = 1e-5         # kernel vs plain loss, relative
 HOST_COVER_CYCLES = 2_000_000  # ~1 ms of card spin ahead of each timed call
+# [dist]: qwen2.5-32b at full width cut to 2 of its 64 layers, 2 x 2,048
+# tokens a step, 3 steps: the plain Trainer, then the mesh Trainer on a
+# world-size-1 NCCL 1 x 1 mesh from the same seed on the same batches
+DIST_ARCH, DIST_CUT, DIST_PARAMS = "qwen2.5-32b", dict(n_layers=2), \
+    2_532_350_976
+DIST_BATCH, DIST_SEQ, DIST_STEPS = 2, 2048, 3
+DIST_LOSS_RTOL = 1e-6          # mesh vs plain Trainer loss, relative
 # (b, h, kv, sq, sk, hd, causal, window, softcap)
 # B5 at the shapes the served paths give it, by path: recurrentgemma-9b's
 # local attention ([serve]), qwen2-moe's prefill, whisper-large-v3's
@@ -237,6 +262,7 @@ ATTN_SERVED = {
     "whisper-encdec-cross": (4, 20, 20, 384, 1500, 64, False, 0, 0.0),
     "vision-self": (4, 64, 8, 1024, 1024, 128, True, 0, 0.0),
     "vision-cross": (4, 64, 8, 1024, 1601, 128, False, 0, 0.0),
+    "qwen2.5-train": (2, 40, 8, 2048, 2048, 128, True, 0, 0.0),  # [dist]
 }
 # the served shapes B5 also takes in bf16: [serve]'s (no bf16 path runs
 # it) and the two of whisper that [serve-bf16] drives
@@ -2022,11 +2048,13 @@ MOE_STEPS = {"_route": "router", "_dispatch": "dispatch",
              "_shared_experts": "shared experts"}
 
 
-def kernel_event_times(torch, run):
+def kernel_event_times(torch, run, scope="prefill"):
     """Run ``run()`` with CUDA events around every B5, B6 and B7 wrapper
     call the model layers make and around each step of the MoE block
-    (``MOE_STEPS``), inside ``model.prefill`` only; returns (run's value,
-    ms summed per name)."""
+    (``MOE_STEPS``), inside the entry point ``scope`` of
+    ``repro_torch.models.model`` only (``prefill`` for the serve phases,
+    ``loss_fn`` for [train]); returns (run's value, ms summed per name,
+    calls timed per name)."""
     from repro_torch.models import attention as MA
     from repro_torch.models import model as MM
     from repro_torch.models import moe as MO
@@ -2035,13 +2063,13 @@ def kernel_event_times(torch, run):
     targets = ((MA, "flash_attention"), (MR, "rglru_scan"),
                (MS, "ssd_scan")) + tuple((MO, n) for n in MOE_STEPS)
     saved = [getattr(mod, name) for mod, name in targets]
-    prefill = MM.prefill
+    entry = getattr(MM, scope)
     pairs = {name: [] for _, name in targets}
-    in_prefill = [False]
+    in_scope = [False]
 
     def timed(name, fn):
         def call(*a, **kw):
-            if not in_prefill[0]:
+            if not in_scope[0]:
                 return fn(*a, **kw)
             s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             s.record()
@@ -2051,24 +2079,25 @@ def kernel_event_times(torch, run):
             return val
         return call
 
-    def timed_prefill(*a, **kw):
-        in_prefill[0] = True
+    def timed_entry(*a, **kw):
+        in_scope[0] = True
         try:
-            return prefill(*a, **kw)
+            return entry(*a, **kw)
         finally:
-            in_prefill[0] = False
+            in_scope[0] = False
     try:
         for (mod, name), fn in zip(targets, saved):
             setattr(mod, name, timed(name, fn))
-        MM.prefill = timed_prefill
+        setattr(MM, scope, timed_entry)
         value = run()
     finally:
         for (mod, name), fn in zip(targets, saved):
             setattr(mod, name, fn)
-        MM.prefill = prefill
+        setattr(MM, scope, entry)
     torch.cuda.synchronize()
-    return value, {n: sum(s.elapsed_time(e) for s, e in ps)
-                   for n, ps in pairs.items()}
+    return (value, {n: sum(s.elapsed_time(e) for s, e in ps)
+                    for n, ps in pairs.items()},
+            {n: len(ps) for n, ps in pairs.items()})
 
 
 @contextlib.contextmanager
@@ -2220,7 +2249,7 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
         routes = ([], [])
         ext.reset_launch_counts()               # the served path starts here
         with record_routes(routes[0]):
-            (out, stats), kms = kernel_event_times(
+            (out, stats), kms, _ = kernel_event_times(
                 torch, lambda: srv.generate(prompts, gen, extra=extra,
                                             keep_logits=True))
         launches = {k: ext.LAUNCHES[k] for k in MODEL_KERNELS}  # ends here
@@ -3007,27 +3036,36 @@ def phase_train(torch, ext, KS, dev, smi):
                      for k, v in next(loader).items()}
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             ev[0].record()
-            (loss, _), kms = kernel_event_times(
-                torch, lambda: mdl.loss_fn(params, batch, cfg))
+            ext.reset_launch_counts()
+            (loss, _), kms, calls = kernel_event_times(
+                torch, lambda: mdl.loss_fn(params, batch, cfg),
+                scope="loss_fn")
             ev[1].record()
+            if not calls["ssd_scan"] == ext.LAUNCHES["ssd_scan"] == n_layers:
+                fail(f"[train] the timed forward counted "
+                     f"{calls['ssd_scan']} B6 calls and "
+                     f"{ext.LAUNCHES['ssd_scan']} launches, expected "
+                     f"{n_layers}")
             grads = torch.autograd.grad(loss, flat)
             ev[2].record()
             adamw_update(params, unflatten(params, grads), opt, run)
             ev[3].record()
             ev[3].synchronize()
             split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)]
-                         + [kms["ssd_scan"]])
+                         + [kms["ssd_scan"], calls["ssd_scan"]])
             del grads, loss
         loader.close()
         fwd, bwd, opt_ms, b6_in_fwd = (float(np.median([r[j] for r in split]))
                                       for j in range(4))
+        if not b6_in_fwd > 0:
+            fail(f"[train] B6's time in the forward reads {b6_in_fwd} ms")
         step_ms = fwd + bwd + opt_ms
         b6_ms, b6_bwd_ms, b6_rel = b6_train_ms(torch, KS, dev, cfg)
         log(f"[train] a step (median of {TRAIN_TIMED_STEPS}, CUDA events): "
             f"forward {fwd:.3f} ms, backward {bwd:.3f} ms, optimizer "
             f"{opt_ms:.3f} ms, total {step_ms:.3f} ms = "
             f"{b * s / step_ms * 1e3:.1f} tokens/s; B6 in the forward "
-            f"{b6_in_fwd:.3f} ms ({n_layers} launches) = "
+            f"{b6_in_fwd:.3f} ms ({split[0][4]} launches counted) = "
             f"{b6_in_fwd / fwd:.4f} of it; B6 at the train shape (b {b}, s "
             f"{s}, h {cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim}, p "
             f"{cfg.ssm_headdim}, n {cfg.ssm_state}) {b6_ms:.4f} ms a launch "
@@ -3035,9 +3073,189 @@ def phase_train(torch, ext, KS, dev, smi):
             f"of the (batch, head)'s max (limit {SSD_RTOL}), its recomputing backward {b6_bwd_ms:.3f} ms a layer "
             f"= {n_layers * b6_bwd_ms / bwd:.4f} of the backward if "
             f"{n_layers} layers; {smi}")
-        return {"ssd_scan": launches + launches2}
+        return {"ssd_scan": launches + launches2}, step_ms
     finally:
         remove_store(root)
+
+
+def count_step(torch, cfg, run, batch: int, seq: int):
+    """The FLOPs and bytes of one train step of ``cfg`` on one device,
+    counted on ``meta`` tensors (``launch.analysis.StepCounter``): the
+    kernels' plain versions stand in for B5/B6/B7, which are no aten
+    op."""
+    from repro_torch.launch.analysis import StepCounter
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as mdl
+    from repro_torch.optim import AdamWState
+    meta = torch.device("meta")
+    params = mdl.params_like(cfg)
+    opt = AdamWState(torch.zeros((), dtype=torch.int32),
+                     mdl.params_like(cfg), mdl.params_like(cfg))
+    data = {k: torch.empty((batch, seq), dtype=torch.int32, device=meta)
+            for k in ("tokens", "labels")}
+    with StepCounter() as c:
+        make_train_step(cfg, run)(params, opt, data)
+    return c.flops, c.bytes
+
+
+def roofline_line(tag, cfg, flops, bytes_, ms, tokens, smi):
+    """One line: counted and model FLOPs (6 N D, N without a lookup-only
+    embedding), bytes, the measured step, t_compute at f32's rate and
+    the model-FLOPs share of the step at that rate."""
+    from repro_torch.launch import analysis as AN
+    from repro_torch.models import model as mdl
+    n = mdl.count_params_analytic(cfg, active_only=True)
+    embed = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+    model_flops = AN.model_flops_estimate(cfg, "train", tokens, 1, n, embed)
+    peak = AN.H100_SXM.peak("float32")
+    share = model_flops / (ms * 1e-3 * peak)
+    log(f"[roofline] {tag} {cfg.name}: counted {flops:.4e} FLOPs (the "
+        f"plain versions', on meta) = {flops / model_flops:.4f} x the "
+        f"model's 6 N D = {model_flops:.4e} (N {n - embed}, D {tokens}); "
+        f"bytes {bytes_:.4e}; measured step {ms:.3f} ms; t_compute "
+        f"{flops / peak * 1e3:.3f} ms at f32's {peak:.3g} FLOP/s; "
+        f"model-FLOPs share {share:.4f}; {smi}")
+    return share
+
+
+def phase_dist(torch, ext, dev, smi, train_ms):
+    """[dist] qwen2.5-32b at full width, cut to 2 layers, through the
+    plain Trainer and then the mesh Trainer on a world-size-1 NCCL 1 x 1
+    mesh from the same seed on the same batches (equal losses, B5 two
+    launches a forward); the roofline of that step and of [train]'s; the
+    dry run of this cell against the state the card holds."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import TokenLoader, build_synthetic_corpus
+    from repro_torch.launch import analysis as AN
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.train import Trainer
+    from repro_torch.tree import leaves
+    cfg = get_config(DIST_ARCH).scaled(dtype="float32", **DIST_CUT)
+    run = RunConfig(arch=DIST_ARCH, remat="none", total_steps=DIST_STEPS,
+                    warmup_steps=1, checkpoint_every=1000)
+    b, s, n_layers = DIST_BATCH, DIST_SEQ, cfg.n_layers
+    roots = [ROOT / ".chip_smoke" / n for n in ("dist", "dist_mesh")]
+    for r in roots:
+        remove_store(r)
+    try:
+        # the dry run of this cell, before the real process group exists
+        with dryrun.fake_world(MeshShape((1, 1), ("data", "model"))) as fm:
+            rep = dryrun.count_cell(
+                DIST_ARCH, ShapeConfig("dist", s, b, "train"), mesh=fm,
+                mesh_name="1x1", cfg=get_config(DIST_ARCH).scaled(
+                    dtype="float32", **DIST_CUT),
+                param_dtype=torch.float32, remat="none")
+            _, (dparams, dopt, dbatch), _, _, _ = dryrun.build_cell(
+                DIST_ARCH, ShapeConfig("dist", s, b, "train"), mesh=fm,
+                cfg=cfg, param_dtype=torch.float32, remat="none")
+            dry_state = AN.local_bytes((dparams, dopt))
+            dry_batch = AN.local_bytes(dbatch)
+        if rep.argument_bytes != dry_state + dry_batch:
+            fail(f"[dist] the dry run's argument bytes "
+                 f"{rep.argument_bytes} are not its state's {dry_state} "
+                 f"+ batch's {dry_batch}")
+
+        # 1. the plain Trainer
+        tr = Trainer(cfg, run, roots[0], device=dev)
+        build_synthetic_corpus(tr.clovis, vocab=cfg.vocab_real, n_shards=2,
+                               tokens_per_shard=b * (s + 1) * DIST_STEPS)
+        loader = TokenLoader(tr.clovis, batch=b, seq=s)
+        batches = [next(loader) for _ in range(DIST_STEPS)]
+        loader.close()
+        tr.ckpt.close()
+        runs = {}
+        for mesh in (False, True):
+            if mesh:
+                dist.init_process_group(
+                    "nccl", store=dist.FileStore(
+                        str(ROOT / ".chip_smoke" / "dist_pg"), 1),
+                    rank=0, world_size=1, device_id=dev,
+                    timeout=datetime.timedelta(seconds=120))
+                tr = Trainer(cfg, run, roots[1], data_mesh=1, model_mesh=1,
+                             device=dev)
+                if tr.mesh is None or tr.mesh.device_type != dev.type:
+                    fail("[dist] the Trainer in a process group built no "
+                         "CUDA mesh")
+            torch.cuda.reset_peak_memory_stats(dev)
+            params, opt = tr.init_state(run.seed)
+            n_params = sum(t.numel() for t in leaves(params))
+            if n_params != DIST_PARAMS:
+                fail(f"[dist] {n_params} parameters, expected "
+                     f"{DIST_PARAMS}")
+            state = AN.local_bytes((params, opt))
+            ext.reset_launch_counts()           # the path starts here
+            losses, ms = [], []
+            for batch in batches:
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                params, opt, m = tr.step(params, opt, batch)
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            launches = ext.LAUNCHES["flash_attention"]   # ends here
+            if launches != n_layers * DIST_STEPS:
+                fail(f"[dist] mesh={mesh}: B5 launched {launches} times in "
+                     f"{DIST_STEPS} steps, expected {n_layers} a forward")
+            placed = {str(getattr(t, "placements", None))
+                      for t in leaves(params)}
+            runs[mesh] = dict(losses=losses, ms=ms, state=state,
+                              launches=launches, placed=placed,
+                              peak=torch.cuda.max_memory_allocated(dev))
+            if mesh:
+                tr.ckpt.close()
+            del params, opt, tr
+            torch.cuda.empty_cache()
+        plain, meshed = runs[False], runs[True]
+        rel = max(abs(a - p) / abs(p) for a, p in
+                  zip(meshed["losses"], plain["losses"]))
+        if not all(np.isfinite(plain["losses"] + meshed["losses"])):
+            fail(f"[dist] non-finite losses {runs}")
+        if not rel <= DIST_LOSS_RTOL:
+            fail(f"[dist] mesh losses {meshed['losses']} vs plain "
+                 f"{plain['losses']}: {rel:.3e} apart (limit "
+                 f"{DIST_LOSS_RTOL})")
+        if meshed["placed"] != {"(Replicate(), Replicate())"}:
+            fail(f"[dist] the mesh Trainer's parameters are placed "
+                 f"{meshed['placed']}")
+        if not meshed["state"] == plain["state"] == dry_state:
+            fail(f"[dist] state bytes: dry run {dry_state}, mesh Trainer "
+                 f"{meshed['state']}, plain {plain['state']}")
+        step_ms = float(np.median(meshed["ms"]))
+        log(f"[dist] {cfg.name} at full width cut to {cfg.n_layers} of 64 "
+            f"layers: {DIST_PARAMS} f32 parameters; {b} x {s} tokens a "
+            f"step, {DIST_STEPS} steps; plain Trainer losses "
+            f"{plain['losses']} ({[round(x, 3) for x in plain['ms']]} ms), "
+            f"mesh Trainer on a world-size-1 NCCL 1 x 1 mesh "
+            f"{meshed['losses']} ({[round(x, 3) for x in meshed['ms']]} "
+            f"ms): {rel:.3e} apart (limit {DIST_LOSS_RTOL}), "
+            f"{'bit for bit' if meshed['losses'] == plain['losses'] else 'not bit for bit'}; "
+            f"B5 {meshed['launches']} launches ({n_layers} a forward, GQA "
+            f"40 over 8 heads, hd 128); parameters placed "
+            f"{sorted(meshed['placed'])}")
+        log(f"[dist] dry run of this cell (1 x 1 fake group, f32, "
+            f"remat none): argument bytes {rep.argument_bytes} = state "
+            f"{dry_state} + batch {dry_batch}; the mesh Trainer holds "
+            f"{meshed['state']} B of parameters and AdamW state on the "
+            f"card (equal byte for byte); torch.cuda.max_memory_allocated "
+            f"{meshed['peak']} B over its {DIST_STEPS} steps (plain "
+            f"Trainer {plain['peak']} B)")
+        roofline_line("[dist]", cfg, rep.flops_per_device,
+                      rep.bytes_per_device, step_ms, b * s, smi)
+        tcfg = get_config(TRAIN_ARCH).scaled(dtype="float32")
+        flops, bytes_ = count_step(torch, tcfg, RunConfig(remat="none"),
+                                   TRAIN_BATCH, TRAIN_SEQ)
+        roofline_line("[train]", tcfg, flops, bytes_, train_ms,
+                      TRAIN_BATCH * TRAIN_SEQ, smi)
+        return {"flash_attention": meshed["launches"]}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for r in roots:
+            remove_store(r)
+        shutil.rmtree(ROOT / ".chip_smoke" / "dist_pg", ignore_errors=True)
 
 
 def main() -> int:
@@ -3130,8 +3348,10 @@ def main() -> int:
                 tag="serve-bf16", expect_params=WHISPER_PARAMS,
                 batch=WHISPER_BATCH, prompt=WHISPER_PROMPT, gen=WHISPER_GEN)
     lap("serve-bf16")
-    trained = phase_train(torch, _ext, KS, dev, smi)
+    trained, train_ms = phase_train(torch, _ext, KS, dev, smi)
     lap("train")
+    distributed = phase_dist(torch, _ext, dev, smi, train_ms)
+    lap("dist")
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -3155,7 +3375,8 @@ def main() -> int:
     log(f"[serving] launches: {json.dumps(served['serving'])}; "
         f"[compaction] launches: {json.dumps(served['compaction'])}")
     log(f"[edge] launches: {json.dumps(edge)}; [train] launches over "
-        f"{TRAIN_STEPS} steps: {json.dumps(trained)}")
+        f"{TRAIN_STEPS} steps: {json.dumps(trained)}; [dist] launches "
+        f"over {DIST_STEPS} steps: {json.dumps(distributed)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)                          # nvidia-smi's "name, power.limit"
     print(json.dumps({"kernels": rows}))

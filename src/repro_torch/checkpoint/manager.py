@@ -35,6 +35,16 @@ other wrote.  What differs:
     ``torch.empty(..., device="meta")`` or of arrays for the structure
     and returns tensors on ``device`` (default: the Clovis stack's).
     Arrays are saved whole, so a later sharded run can re-shard them.
+
+On a mesh (the reference's mesh-elastic restore, ``:20-25``): a
+``DTensor`` leaf is gathered whole (``full_tensor()``, a collective that
+every rank of the mesh enters: ``gather_state``), and only the rank that
+owns the Clovis store writes, so the bytes on disk are those of a
+one-device run.  ``restore(..., mesh=, specs=)`` places what it read on
+any mesh by the specs, scattering from the reading rank, while the
+other ranks call ``CheckpointManager.receive`` for their shards.  A
+checkpoint saved on a 2 x 2 mesh restores on one device, on 4 x 1, and
+in the reference.
 """
 from __future__ import annotations
 
@@ -47,19 +57,23 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import layouts as lay
 from repro_torch.core.clovis import Clovis
 from repro_torch.core.storage_window import WindowAllocator
 from repro_torch.core.streams import StreamContext
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.tree import flatten_with_names, unflatten
+from repro_torch.tree import flatten_with_names, leaves, tree_map, unflatten
 
 CKPT_CONTAINER = "checkpoints"
 
 
 def _host(leaf) -> np.ndarray:
-    """A host copy of one leaf that nothing else writes to."""
+    """A host copy of one leaf that nothing else writes to (a
+    ``DTensor`` leaf is gathered whole first: a collective)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
@@ -78,6 +92,14 @@ def _tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(arr.view(np.int16)).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device)
+
+
+def gather_state(tree):
+    """The tree with every leaf gathered whole into host memory, leaf by
+    leaf; on a mesh every rank must call it (``full_tensor`` is a
+    collective), and the rank that owns the store then saves the
+    result."""
+    return unflatten(tree, [_host(leaf) for leaf in leaves(tree)])
 
 
 def _flatten(tree) -> List[Tuple[str, np.ndarray]]:
@@ -280,10 +302,39 @@ class CheckpointManager:
         return max(steps) if steps else None
 
     def restore(self, step: Optional[int] = None, like=None, *,
-                device: DeviceLike = None):
+                device: DeviceLike = None, mesh=None, specs=None):
         """Rebuild the state tree.  ``like`` (a tree of tensors, meta
         tensors or arrays) supplies the structure; the leaves come back as
-        tensors on ``device`` (default: the Clovis stack's device)."""
+        tensors on ``device`` (default: the Clovis stack's device).  With
+        ``mesh`` and ``specs`` (a tree of ``distributed.sharding`` specs
+        like ``like``) they come back as ``DTensor``s on that mesh,
+        scattered from this rank: the mesh's other ranks call
+        ``receive`` at the same time."""
+        out = self._restore(step, like, device)
+        if mesh is None:
+            return out
+        from repro_torch.distributed.sharding import distribute
+        return distribute(out, specs, mesh,
+                          src_data_rank=torch.distributed.get_rank())
+
+    def leaf_names(self, step: int) -> List[str]:
+        """The leaf names checkpoint ``step`` holds."""
+        return sorted(json.loads(
+            self.clovis.get(self._manifest_oid(step)))["leaves"])
+
+    @staticmethod
+    def receive(like, specs, mesh, device: DeviceLike = None):
+        """The shards of a state that the rank holding the store (rank 0)
+        restores with ``restore(..., mesh=, specs=)``: a rank without the
+        store calls this at the same time."""
+        from repro_torch.distributed.sharding import distribute
+        dev = resolve_device(device)
+        empty = tree_map(lambda t: torch.empty(tuple(t.shape),
+                                               dtype=t.dtype, device=dev),
+                         like)
+        return distribute(empty, specs, mesh, src_data_rank=0)
+
+    def _restore(self, step, like, device):
         if step is None:
             step = self.latest_step()
         if step is None:

@@ -19,6 +19,8 @@ import torch
 
 from repro_torch._ext import count_launch
 from repro_torch.kernels.grad import wants_grad, with_plain_grad
+from repro_torch.kernels.sharded import (is_distributed, require_local,
+                                         run_local)
 
 # the input types the CUDA route takes; the kernel itself reads f32
 KERNEL_DTYPES = {torch.float32, torch.bfloat16}
@@ -85,9 +87,14 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention_plain``.  Where autograd records and an input
     requires grad, the CUDA route still launches the kernel, and its
     backward is the gradient of ``flash_attention_plain`` recomputed from
-    the saved inputs (``kernels.grad``)."""
+    the saved inputs (``kernels.grad``).  ``DTensor`` inputs run this on
+    each rank's batch rows and heads (``kernels.sharded``)."""
     _check(q, k, v)
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    if is_distributed(q, k, v):
+        lab = ("b", "h", None, None)
+        return run_local(flash_attention_kernel, (q, k, v), (lab,) * 3,
+                         (lab,), **kw)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, **kw)
     if wants_grad(q, k, v):
@@ -102,6 +109,7 @@ def _launch(q, k, v, *, scale, causal, window, softcap):
     The kernel computes in f32: bf16 inputs are cast to f32 here (a copy
     each, which also starts on a fresh 16-byte boundary) and the output
     comes back in q.dtype, as ``flash_attention_plain``'s does."""
+    require_local(q, k, v)
     if not {q.dtype, k.dtype, v.dtype} <= KERNEL_DTYPES:
         raise TypeError(f"sage_flash_attention takes float32 or bfloat16, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -142,4 +150,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(), scale=scale, causal=causal,
         window=window, softcap=softcap)
-    return out.transpose(1, 2)
+    # contiguous here, where the caller's reshape would copy anyway: a
+    # DTensor's reshape of the strided view fails in its backward
+    return out.transpose(1, 2).contiguous()

@@ -15,6 +15,8 @@ import torch
 
 from repro_torch._ext import count_launch
 from repro_torch.kernels.grad import wants_grad, with_plain_grad
+from repro_torch.kernels.sharded import (is_distributed, require_local,
+                                         run_local)
 
 
 def rglru_scan_plain(a: torch.Tensor, x: torch.Tensor,
@@ -40,7 +42,12 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
     tensor runs ``rglru_scan_plain``.  Where autograd records and an
     input requires grad, the CUDA route still launches the kernel, and its
     backward is the gradient of ``rglru_scan_plain`` recomputed from the
-    saved inputs (``kernels.grad``)."""
+    saved inputs (``kernels.grad``).  ``DTensor`` inputs run this on each
+    rank's batch rows and width (``kernels.sharded``)."""
+    if is_distributed(a, x, h0):
+        lab = ("b", None, "h")
+        return run_local(rglru_scan, (a, x, h0), (lab, lab, ("b", "h")),
+                         (lab,))
     if a.dim() != 3 or a.shape != x.shape:
         raise ValueError(f"rglru_scan takes a, x of one (b, s, w) shape, "
                          f"got {tuple(a.shape)} and {tuple(x.shape)}")
@@ -60,6 +67,7 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
 
 def _launch(a, x, h0):
     """One launch of ``sage_rglru_scan`` on checked CUDA inputs."""
+    require_local(a, x, h0)
     b, s, w = a.shape
     tensors = (a, x) if h0 is None else (a, x, h0)
     if any(t.dtype != torch.float32 for t in tensors):

@@ -25,6 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch._ext import count_launch
 from repro_torch.kernels.grad import wants_grad, with_plain_grad
+from repro_torch.kernels.sharded import (is_distributed, require_local,
+                                         run_local)
 
 KERNEL_STATES = (16, 32, 64, 128, 256)   # state sizes n the kernel takes
 # the input types the CUDA route takes; the kernel itself reads f32
@@ -168,8 +170,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     Where autograd records and an input requires grad, the CUDA route
     still launches the kernel, and its backward is the gradient of
     ``ssd_chunked`` at ``chunk`` recomputed from the saved inputs
-    (``kernels.grad``), for every input the state included."""
+    (``kernels.grad``), for every input the state included.
+    ``DTensor`` inputs run this on each rank's batch rows and heads
+    (``kernels.sharded``; B and C split their groups with the heads,
+    or stay whole where there is one group)."""
     _check(x, dt, a_log, B, C, initial_state)
+    if is_distributed(x, dt, a_log, B, C, initial_state):
+        grp = ("b", None, "h" if B.shape[2] > 1 else None, None)
+        return run_local(
+            lambda *a: ssd_scan(*a[:5], chunk, a[5]),
+            (x, dt, a_log, B, C, initial_state),
+            (("b", None, "h", None), ("b", None, "h"), ("h",), grp, grp,
+             ("b", "h", None, None)),
+            (("b", None, "h", None), ("b", "h", None, None)))
     tensors = (x, dt, a_log, B, C) + (
         () if initial_state is None else (initial_state,))
     if any(t.device != x.device for t in tensors):
@@ -188,6 +201,7 @@ def _launch(x, dt, a_log, B, C, initial_state):
     kernel reads f32: bf16 x, B, C or state are cast to f32 here (a copy
     each) and y comes back in x.dtype, the state in f32, as from
     ``ssd_chunked``."""
+    require_local(x, dt, a_log, B, C, initial_state)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     tensors = (x, dt, a_log, B, C) + (

@@ -7,17 +7,32 @@ parameter leaf, each set ``requires_grad_(True)``; on the card the model
 kernels carry their gradients (``kernels.grad``).  With ``microbatch``
 n > 1 the batch is split into n along its first axis and the f32
 gradients are averaged, as the reference's scan does.
+
+On a mesh the parameters, the optimizer state and the batch are
+``DTensor``s (``distributed.sharding``) and the same code runs on them;
+each gradient is redistributed to its parameter's placements before the
+update.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import model as mdl
+from repro_torch.models.common import on_replicas
 from repro_torch.optim import AdamWState, adamw_update
 from repro_torch.tree import leaves, unflatten
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` parameter's gradient on that parameter's placements
+    (autograd leaves ``Partial`` sums where the batch was split)."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_grad_fn(cfg: ModelConfig, run: RunConfig):
@@ -34,6 +49,7 @@ def make_grad_fn(cfg: ModelConfig, run: RunConfig):
         # it, and its zeros are the reference's
         grads = torch.autograd.grad(loss, flat, allow_unused=True,
                                     materialize_grads=True)
+        grads = [_placed_like(g, p) for g, p in zip(grads, flat)]
         return unflatten(params, grads), {k: v.detach()
                                           for k, v in metrics.items()}
 
@@ -83,10 +99,15 @@ def make_decode_step(cfg: ModelConfig):
     """(params, cache, token, position) -> (next_token, cache): one new
     token for the whole batch against a filled KV/state cache."""
 
+    def greedy(logits):
+        return logits.argmax(-1).to(torch.int32)[:, None]
+
     @torch.no_grad()
     def serve_step(params, cache, token, position):
         logits, cache = mdl.decode_step(params, token, position, cfg, cache)
-        return logits.argmax(-1).to(torch.int32)[:, None], cache
+        # on a mesh the argmax runs on whole logits: DTensor's argmax over
+        # a split vocab fails on one row (on_replicas)
+        return on_replicas(greedy, logits), cache
 
     return serve_step
 

@@ -28,7 +28,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.attention import flash_attention
-from repro_torch.models.common import apply_rope, dense_init, rms_norm, softcap
+from repro_torch.models.common import (apply_rope, dense_init, rms_norm,
+                                       shard_heads, softcap)
 
 NEG_INF = -2.0e38  # fp32-safe mask value
 
@@ -207,11 +208,12 @@ def _project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return q, k, v
+    return shard_heads(q), k, v
 
 
 def _out_proj(p: Dict, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     wo = p["wo"].to(x.dtype)
+    out = shard_heads(out)
     return torch.matmul(out.reshape(*out.shape[:2], -1),
                         wo.reshape(-1, wo.shape[-1]))
 
@@ -221,9 +223,10 @@ def _attend(q, k, v, pos, cfg: ModelConfig, window: int,
     """Causal self attention of a full sequence at positions ``pos``."""
     s = q.shape[1]
     if use_kernels:
-        # B5 takes positions as indices: the prompt must start at 0
-        if not torch.equal(pos, torch.arange(s, device=pos.device,
-                                             dtype=pos.dtype)):
+        # B5 takes positions as indices: the prompt must start at 0 (a
+        # meta tensor of the dry run has no values to check)
+        if pos.device.type != "meta" and not torch.equal(
+                pos, torch.arange(s, device=pos.device, dtype=pos.dtype)):
             raise ValueError("the flash-attention path needs positions "
                              "0..s-1 (prefill starts at position 0)")
         return flash_attention(q, k, v, scale=_scale(cfg), causal=True,
@@ -281,6 +284,7 @@ def cross_attention(p: Dict, x: torch.Tensor,
     if gated:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = shard_heads(q)
     out = _out_proj(p, attend_unmasked(q, k, v, cfg,
                                        use_kernels=use_kernels), x)
     if gated:

@@ -1,16 +1,135 @@
-"""Shared model building blocks: norms, activations, RoPE, init.
+"""Shared model building blocks: norms, activations, RoPE, init, and the
+activation-sharding rules.
 
 Functional like the reference: parameters are plain nested dicts of
-tensors, layers are functions.  The reference's activation-sharding
-helpers (``shard_*``) are identities in one process and have no
-counterpart here.
+tensors, layers are functions.  Activation constraints go through a
+context-managed ``AxisRules``, as in the reference: with the rules off
+(the default) every ``shard_*`` returns its input, so a one-device run
+is exactly what it was; with rules on (``axis_rules``, which the mesh
+``Trainer`` enters with ``distributed.sharding.default_axis_rules``)
+each constraint redistributes a ``DTensor`` activation to the
+placements the rule names, which is where the collectives of
+tensor parallelism run (a ``Partial`` sum is reduced, a sharded dim
+gathered or split).  An activation that is not a ``DTensor`` under
+enabled rules raises: the mesh is never switched off quietly.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+import dataclasses
+import threading
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+# --------------------------------------------------------------------------
+# Activation-sharding rules (t5x-style logical axes, minimal version)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AxisRules:
+    """Logical-axis -> mesh-axis rules for activation constraints, and
+    the ``DeviceMesh`` they name."""
+
+    batch: Tuple[str, ...] = ()        # e.g. ('pod', 'data')
+    heads: Optional[str] = None        # e.g. 'model'
+    ff: Optional[str] = None           # e.g. 'model'
+    vocab: Optional[str] = None        # e.g. 'model'
+    # 'model', or ('data','model') in the serving layout (1 expert/chip)
+    expert: object = None
+    seq: Optional[str] = None          # sequence parallelism
+    enabled: bool = False
+    mesh: object = None
+
+
+_STATE = threading.local()
+
+
+def current_rules() -> AxisRules:
+    return getattr(_STATE, "rules", AxisRules())
+
+
+@contextlib.contextmanager
+def axis_rules(rules: AxisRules):
+    prev = current_rules()
+    _STATE.rules = rules
+    try:
+        yield
+    finally:
+        _STATE.rules = prev
+
+
+def constrain(x: torch.Tensor, spec: Sequence) -> torch.Tensor:
+    """Redistribute the ``DTensor`` ``x`` to ``spec`` (one entry per dim:
+    None, a mesh-axis name or a tuple of names) on the rules' mesh."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        raise TypeError(f"activation-sharding rules are on, but a "
+                        f"{type(x).__name__} of shape {tuple(x.shape)} is "
+                        f"not a DTensor")
+    from repro_torch.distributed.sharding import placements
+    mesh = current_rules().mesh
+    return x.redistribute(mesh, placements(tuple(spec), mesh))
+
+
+def on_replicas(fn, *args):
+    """``fn(*args)`` on whole local copies of the ``DTensor`` arguments,
+    every output back as a replicated ``DTensor`` of the same mesh: the
+    way past an op that has no sharding rule (a stable sort, a scatter,
+    a gather by computed indices).  Each rank computes the same whole
+    result; the gradient flows back through the redistribution.  With
+    no ``DTensor`` argument it is ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    dts = [a for a in args if isinstance(a, DTensor)]
+    if not dts:
+        return fn(*args)
+    mesh = dts[0].device_mesh
+    whole = [Replicate()] * mesh.ndim
+    out = fn(*(a.redistribute(mesh, whole).to_local()
+               if isinstance(a, DTensor) else a for a in args))
+
+    def wrap(t):
+        if isinstance(t, torch.Tensor) and not isinstance(t, DTensor):
+            return DTensor.from_local(t, mesh, whole, run_check=False)
+        return t
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def _batch(r: AxisRules):
+    return r.batch if r.batch else None
+
+
+def shard_batch_seq(x: torch.Tensor) -> torch.Tensor:
+    """Constrain (batch, seq, ...) activations: batch->DP, optionally seq->SP."""
+    r = current_rules()
+    if not r.enabled:
+        return x
+    return constrain(x, [_batch(r), r.seq] + [None] * (x.dim() - 2))
+
+
+def shard_heads(x: torch.Tensor) -> torch.Tensor:
+    """Constrain (batch, seq, heads, head_dim) activations: heads->TP."""
+    r = current_rules()
+    if not r.enabled:
+        return x
+    return constrain(x, (_batch(r), None, r.heads, None))
+
+
+def shard_ff(x: torch.Tensor) -> torch.Tensor:
+    """Constrain (batch, seq, d_ff) activations: hidden->TP."""
+    r = current_rules()
+    if not r.enabled:
+        return x
+    return constrain(x, [_batch(r)] + [None] * (x.dim() - 2) + [r.ff])
+
+
+def shard_vocab(x: torch.Tensor) -> torch.Tensor:
+    r = current_rules()
+    if not r.enabled:
+        return x
+    return constrain(x, [_batch(r)] + [None] * (x.dim() - 2) + [r.vocab])
 
 
 # --------------------------------------------------------------------------

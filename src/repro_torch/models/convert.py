@@ -75,3 +75,66 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                             leaf),
             "ln_f": _tree(tree["encoder"]["ln_f"], leaf)}
     return out
+
+
+def _stacks(cfg: ModelConfig):
+    """(key path, stack config) of each layer stack of a parameter tree."""
+    out = [(("decoder",), cfg)]
+    if cfg.is_encoder_decoder:
+        out.append((("encoder", "stack"), _encoder_cfg(cfg)))
+    return out
+
+
+def _scanned(stack_cfg: ModelConfig) -> bool:
+    """Whether the reference's default (``scan_layers=True``) layout
+    stacks this stack's body: it does when the pattern repeats."""
+    return stack_plan(stack_cfg)[1] > 1
+
+
+def _replace(tree: Dict, path, fn) -> Dict:
+    if len(path) == 1:
+        return {**tree, path[0]: fn(tree[path[0]])}
+    return {**tree, path[0]: _replace(tree[path[0]], path[1:], fn)}
+
+
+def to_scan_layout(params: Dict[str, Any], cfg: ModelConfig
+                   ) -> Dict[str, Any]:
+    """The port's parameter tree (tensors, ``meta`` ones included) in the
+    reference's default layout: each repeated body stacked under
+    ``"scan"``, one tree per pattern position with a leading ``reps``
+    axis (the names its checkpoints carry)."""
+    from repro_torch.tree import tree_map
+    for path, scfg in _stacks(cfg):
+        if not _scanned(scfg):
+            continue
+        _, reps, pattern, _ = stack_plan(scfg)
+        period = len(pattern)
+
+        def stack(st, reps=reps, period=period):
+            body = st["unrolled"]
+            scan = [tree_map(lambda *ls: torch.stack(ls),
+                             *[body[r * period + pos] for r in range(reps)])
+                    for pos in range(period)]
+            return {k: v for k, v in st.items() if k != "unrolled"} | {
+                "scan": scan}
+        params = _replace(params, path, stack)
+    return params
+
+
+def from_scan_layout(params: Dict[str, Any], cfg: ModelConfig
+                     ) -> Dict[str, Any]:
+    """``to_scan_layout`` undone: one dict per layer under
+    ``"unrolled"``."""
+    from repro_torch.tree import tree_map
+    for path, scfg in _stacks(cfg):
+        if not _scanned(scfg):
+            continue
+        _, reps, pattern, _ = stack_plan(scfg)
+
+        def unstack(st, reps=reps, period=len(pattern)):
+            body = [tree_map(lambda a, r=r: a[r], st["scan"][pos])
+                    for r in range(reps) for pos in range(period)]
+            return {k: v for k, v in st.items() if k != "scan"} | {
+                "unrolled": body}
+        params = _replace(params, path, unstack)
+    return params

@@ -57,7 +57,7 @@ def _queries(p: Dict, x: torch.Tensor, positions: torch.Tensor,
     """-> q_nope (b, s, h, dn), q_pe (b, s, h, dr)."""
     q_lat = torch.matmul(x, p["wq_a"].to(x.dtype))
     q_lat = common.rms_norm(q_lat, p["q_norm"], cfg.norm_eps)
-    q = _heads(q_lat, p["wq_b"])
+    q = common.shard_heads(_heads(q_lat, p["wq_b"]))
     dn = cfg.qk_nope_head_dim
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
@@ -93,6 +93,7 @@ def mla_attention(p: Dict, x: torch.Tensor, positions: torch.Tensor,
         out = attend_chunked(q, k, v, pos, pos, scfg, causal=True, window=0)
     else:
         out = attend_dense(q, k, v, pos[:, None] >= pos[None, :], scfg)
+    out = common.shard_heads(out)
     wo = p["wo"].to(x.dtype)
     return torch.matmul(out.reshape(*out.shape[:2], -1),
                         wo.reshape(-1, wo.shape[-1]))
@@ -156,7 +157,7 @@ def mla_decode(p: Dict, x: torch.Tensor, position: int, cfg: ModelConfig,
     logits = torch.where(valid, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     lat = torch.einsum("bshw,bwr->bshr", probs, ckv)        # (b, 1, h, kr)
-    out = torch.einsum("bshr,rhv->bshv", lat, wv)           # (b, 1, h, dv)
+    out = common.shard_heads(torch.einsum("bshr,rhv->bshv", lat, wv))
     wo = p["wo"].to(x.dtype)
     out = torch.matmul(out.reshape(*out.shape[:2], -1),
                        wo.reshape(-1, wo.shape[-1]))

@@ -138,7 +138,7 @@ def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt,
                              device=x.device)
-    return x
+    return common.shard_batch_seq(x)
 
 
 def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -148,7 +148,8 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         logits = torch.matmul(h, params["embed"].to(h.dtype).t())
     else:
         logits = torch.matmul(h, params["lm_head"].to(h.dtype))
-    logits = common.softcap(logits.float(), cfg.final_softcap)
+    logits = common.softcap(common.shard_vocab(logits).float(),
+                            cfg.final_softcap)
     if cfg.vocab_real != cfg.vocab_size:
         pad = torch.arange(cfg.vocab_size, device=logits.device) \
             >= cfg.vocab_real

@@ -25,6 +25,16 @@ results the same from run to run:
 Routers: softmax (qwen2-moe, with the load-balance aux loss) and sigmoid
 with the aux-loss-free bias (deepseek-v3: the bias changes only which
 experts are selected; the gates are the raw sigmoid scores).
+
+On a mesh (activation rules on, ``models.common.axis_rules``) the
+dispatch tensors shard E over the expert axis (expert parallelism) and
+their rows over the batch axes the expert axis leaves free, as the
+reference's ``_shard_dispatch`` does.  Three steps have no ``DTensor``
+sharding rule and run on whole replicated copies
+(``common.on_replicas``), each rank computing the same result: the
+routing (``_route``: the stable sorts of ``topk_indices``, the mask's
+``scatter_``, the slot ``gather``s), the slot gather of ``_dispatch``
+and the per-token gather of ``_combine``.
 """
 from __future__ import annotations
 
@@ -33,7 +43,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import activation, dense_init
+from repro_torch.models import common
+from repro_torch.models.common import activation, dense_init, on_replicas
 
 
 def init_moe(gen, cfg: ModelConfig, dtype=torch.float32,
@@ -108,10 +119,17 @@ def _normalized_gates(gates: torch.Tensor, mask: torch.Tensor
 
 
 def _shard_dispatch(t: torch.Tensor) -> torch.Tensor:
-    """The identity.  The reference constrains the (G, E, C, d) dispatch
-    tensors to shard E over its expert axis; one card has no mesh, and
-    expert parallelism waits for the distributed slice (ROADMAP A13)."""
-    return t
+    """Constrain the (E, G*C, d) dispatch tensors: E -> the expert axis,
+    the G-major rows -> the batch axes the expert axis leaves free (the
+    reference's (G, E, C, d) constraint in the port's layout).  The
+    identity with the rules off."""
+    r = common.current_rules()
+    if not r.enabled:
+        return t
+    expert = r.expert if isinstance(r.expert, tuple) else (
+        (r.expert,) if r.expert else ())
+    batch = tuple(a for a in r.batch if a not in expert) or None
+    return common.constrain(t, (r.expert, batch) + (None,) * (t.dim() - 2))
 
 
 def capacity(cfg: ModelConfig, group_size: int) -> int:
@@ -153,10 +171,12 @@ def _route(p: Dict, xg: torch.Tensor, cfg: ModelConfig, cap: int):
 
 def _dispatch(xg: torch.Tensor, tok_idx: torch.Tensor) -> torch.Tensor:
     """Gather each expert's tokens: (G, S, d), (G, E, C) -> (E, G*C, d)."""
-    g, e, c = tok_idx.shape
-    gi = torch.arange(g, device=xg.device)[None, :, None]
-    xd = xg[gi, tok_idx.transpose(0, 1)]                   # (E, G, C, d)
-    return _shard_dispatch(xd.reshape(e, g * c, xg.shape[-1]))
+    def gather(xg, tok_idx):
+        g, e, c = tok_idx.shape
+        gi = torch.arange(g, device=xg.device)[None, :, None]
+        xd = xg[gi, tok_idx.transpose(0, 1)]               # (E, G, C, d)
+        return xd.reshape(e, g * c, xg.shape[-1])
+    return _shard_dispatch(on_replicas(gather, xg, tok_idx))
 
 
 def _expert_ffn(p: Dict, xd: torch.Tensor, cfg: ModelConfig
@@ -173,6 +193,11 @@ def _combine(yd: torch.Tensor, experts: torch.Tensor, slot: torch.Tensor,
              cap: int) -> torch.Tensor:
     """Sum each token's kept expert outputs in ascending expert order.
     yd: (E, G*C, d) weighted; experts, slot: (G, S, k) -> (G, S, d)."""
+    return on_replicas(lambda *a: _combine_local(*a, cap), yd, experts, slot)
+
+
+def _combine_local(yd: torch.Tensor, experts: torch.Tensor,
+                   slot: torch.Tensor, cap: int) -> torch.Tensor:
     g, s, k = experts.shape
     gi = torch.arange(g, device=yd.device)[:, None, None]
     row = (experts * g + gi) * cap + slot.clamp_min(0)      # (G, S, k)
@@ -191,7 +216,7 @@ def _shared_experts(p: Dict, x: torch.Tensor, cfg: ModelConfig
     dt = x.dtype
     hs = act(torch.matmul(x, p["ws_gate"].to(dt))) * torch.matmul(
         x, p["ws_up"].to(dt))
-    ys = torch.matmul(hs, p["ws_down"].to(dt))
+    ys = torch.matmul(common.shard_ff(hs), p["ws_down"].to(dt))
     if cfg.shared_expert_gate:
         ys = ys * torch.sigmoid(torch.matmul(x, p["shared_gate"].to(dt)))
     return ys
@@ -204,7 +229,10 @@ def moe_block(p: Dict, x: torch.Tensor, cfg: ModelConfig
     g, gs = (b, s) if s > 1 else (1, b)
     xg = x.reshape(g, gs, d)
     cap = capacity(cfg, gs)
-    tok_idx, weight, experts, slot, aux = _route(p, xg, cfg, cap)
+    names = [k for k in ("router", "router_bias") if k in p]
+    tok_idx, weight, experts, slot, aux = on_replicas(
+        lambda xg, *w: _route(dict(zip(names, w)), xg, cfg, cap),
+        xg, *(p[k] for k in names))
     yd = _expert_ffn(p, _dispatch(xg, tok_idx), cfg)
     yd = yd * weight.transpose(0, 1).reshape(
         yd.shape[0], -1, 1).to(x.dtype)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru import rglru_scan
+from repro_torch.models import common
 from repro_torch.models.common import dense_init, gelu_tanh
 
 C_RGLRU = 8.0   # Griffin's fixed gate sharpness constant
@@ -128,7 +129,7 @@ def rglru_block(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         h = lru_scan(a, inp, h0)
     final_h = h[:, -1]
-    out = h.to(x.dtype) * yb
+    out = common.shard_ff(h.to(x.dtype) * yb)
     out = torch.matmul(out, p["w_out"].to(x.dtype)) + p["b_out"].to(x.dtype)
     return out, final_h, conv_tail
 

@@ -157,7 +157,7 @@ def _ssm_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     y = y.to(x.dtype) + xs * p["d_skip"].to(x.dtype)[:, None]
     y = y.reshape(b, s, di)
     y = common.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = torch.matmul(y, p["out_proj"].to(x.dtype))
+    out = torch.matmul(common.shard_ff(y), p["out_proj"].to(x.dtype))
     return out, final, xbc_raw
 
 

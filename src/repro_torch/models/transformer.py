@@ -116,9 +116,10 @@ def mlp_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     act = common.activation(cfg.act)
     if "wi" in p:
         h = act(torch.matmul(x, p["wi"].to(x.dtype)) + p["bi"].to(x.dtype))
+        h = common.shard_ff(h)
         return torch.matmul(h, p["wo"].to(x.dtype)) + p["bo"].to(x.dtype)
     h = act(torch.matmul(x, p["wi_gate"].to(x.dtype)))
-    h = h * torch.matmul(x, p["wi_up"].to(x.dtype))
+    h = common.shard_ff(h * torch.matmul(x, p["wi_up"].to(x.dtype)))
     return torch.matmul(h, p["wo"].to(x.dtype))
 
 
@@ -248,7 +249,7 @@ def block_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
 
     if cfg.sandwich_norm:
         mix = apply_norm(p["ln1_post"], mix, cfg)
-    x = x + mix
+    x = common.shard_batch_seq(x + mix)
     if kind == ENCDEC:   # whisper decoder: cross attention to the encoder
         hc = apply_norm(p["ln_cross"], x, cfg)
         cx, xkv = _cross(p["cross"], hc, memory, cfg, mode, cache,
@@ -268,7 +269,7 @@ def block_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         y = torch.tanh(p["mlp_gate"].to(x.dtype)) * y
     if cfg.sandwich_norm:
         y = apply_norm(p["ln2_post"], y, cfg)
-    return x + y, aux, new_cache
+    return common.shard_batch_seq(x + y), aux, new_cache
 
 
 def _cross(p: Dict, h: torch.Tensor, memory: Optional[torch.Tensor],

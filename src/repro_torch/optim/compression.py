@@ -29,8 +29,8 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def init_error_feedback(params) -> Any:
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 def compress_grads(grads, error: Any,

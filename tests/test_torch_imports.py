@@ -36,10 +36,13 @@ def test_no_jax_or_reference_import(path):
 
 def test_port_imports_with_jax_blocked():
     """Import every port module with ``jax`` made unimportable; no
-    ``repro`` module may load on the way."""
+    ``repro`` module may load on the way, and importing starts no process
+    group and leaves the environment as it was (the dry run sets no
+    ``XLA_FLAGS``-like variable, unlike the reference's)."""
     code = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 sys.modules["jax"] = None
+env = dict(os.environ)
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
@@ -49,6 +52,9 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("repro", "jaxlib")
                 or (m.startswith("jax") and sys.modules[m] is not None))
 assert not leaked, leaked
+import torch.distributed as dist
+assert not dist.is_initialized(), "a process group was started"
+assert dict(os.environ) == env, "the environment changed"
 print(" ".join(names))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -57,7 +63,7 @@ print(" ".join(names))
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 50                      # every module imported
+    assert len(names) >= 94                      # every module imported
     assert names >= {"repro_torch.configs", "repro_torch.configs.base",
                      "repro_torch.configs.registry",
                      "repro_torch.configs.recurrentgemma_9b",
@@ -83,7 +89,12 @@ print(" ".join(names))
                      "repro_torch.optim.compression",
                      "repro_torch.checkpoint.manager",
                      "repro_torch.kernels.grad", "repro_torch.tree",
-                     "repro_torch.launch.steps", "repro_torch.launch.train"}
+                     "repro_torch.launch.steps", "repro_torch.launch.train",
+                     "repro_torch.launch.mesh", "repro_torch.launch.analysis",
+                     "repro_torch.launch.dryrun", "repro_torch.distributed",
+                     "repro_torch.distributed.sharding",
+                     "repro_torch.distributed.pipeline",
+                     "repro_torch.kernels.sharded"}
 
 
 @pytest.fixture()
