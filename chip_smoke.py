@@ -8,10 +8,11 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
 
 1. Card and build: the card's name and power limit (nvidia-smi), the
    torch and CUDA versions, the one nvcc build of every
-   ``src/repro_torch/csrc/*.cu`` with its ptxas lines (B5 and B7 must
-   not spill; B1 and B2 must keep no stack frame), and the count of
-   tensor-core instructions in the SASS of the flash-attention and SSD
-   kernels (cuobjdump).
+   ``src/repro_torch/csrc/*.cu`` with its ptxas lines (B5, its bf16
+   kernel and B7 must not spill; B1 and B2 must keep no stack frame),
+   and the count of tensor-core instructions (HMMA, HGMMA) and TMA loads
+   (UTMALDG) in the SASS of the flash-attention and SSD kernels
+   (cuobjdump): the bf16 kernels of B5 and B6 must hold HGMMA.
 2. Each CUDA kernel against its plain PyTorch version on the card over
    edge shapes, ops, dtypes and expression specs; int results must be
    equal, f32 min/max equal (NaN where plain has NaN), f32 sums within
@@ -22,17 +23,19 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
    device (CUDA events, the card kept busy while the host enqueues) at
    the shape its path gives it, beside its bound, its plain version and,
    where one exists, one PyTorch library call (B5 also at every served
-   shape and, with B6, on bf16 inputs); one ``heat_scores`` call at
-   262,144 objects is split into its host and device parts.
+   shape, in f32 and on bf16 inputs through its bf16 kernel; B6 on bf16
+   inputs too, each B6 call split into its launches); one
+   ``heat_scores`` call at 262,144 objects is split into its host and
+   device parts.
 3. The main path at full size: a store of 16 partitions x 4,194,304
    rows x 4 int32 columns (1 GiB, made from torch.Generator seed 0) and
    queries (a)-(d) through ``Clovis.analytics()``; each result must
    equal the ``use_kernels=False`` (numpy reference) engine's exactly,
    and every kernel must have launched.  Then ``[percip]``: query (a)
    again after ``enable_percipience()`` (equal result, heat kernel
-   launched), and the percipience benchmark's traces over 1,024
-   objects, predictive against reactive, with the policy's heat held
-   against the numpy closed form.
+   launched), and the percipience benchmark's traces cut to 512
+   objects and 1,024 reads, predictive against reactive, with the
+   policy's heat held against the numpy closed form.
 4. ``[stream]``: a continuous windowed query over 16,777,216 rows
    pushed by 4 producers; every final window must equal the
    ``use_kernels=False`` batch engine over the same rows.
@@ -105,15 +108,19 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
    attention), the same checks, and other image embeddings must move
    the prefill logits by more than ``MEMORY_MOVE_RTOL``.
    ``[serve-bf16]``: mamba2-130m (B6) and whisper-large-v3 (B5) at full
-   width in their configs' default bf16: every block (and whisper's
+   width in their configs' default bf16, through the bf16 kernels
+   (``attention_bf16.cu``, ``ssd_bf16.cu``; the f32 ones never launch):
+   every block (and whisper's
    encoder blocks) run through the kernels and through the plain path
    on the same bf16 input, within ``BF16_LAYER_RTOL`` of the block's
    largest |value|; and the kernel path's logits (and encoder output)
    no farther from the plain f32 path on the same weights than the
    plain bf16 path's, by more than ``BF16_F32_MARGIN`` of that distance
-   (|a - b| / |b|, averaged over the steps).  B5 and B6 are also held
-   to their plain versions on bf16 inputs at these shapes in
-   ``[model-kernels]``.
+   (|a - b| / |b|, averaged over the steps).  B5's and B6's bf16
+   kernels are also held to their plain versions' f32 results on bf16
+   inputs in ``[model-kernels]``, at every ``ATTN_CASES`` shape and every
+   ``SSD_CASES`` shape with and without a state (the f32 limits plus
+   2^-8 of |value|, one output rounding).
 7. ``[edge]``: ``benchmarks/bench_edge.py``'s hostile schedule (seed
    2026, 4 producers, 1,200 events, 3 crashes: duplicates, reordering,
    poison, a torn tail) through the port's ``EdgeIngestor`` into a
@@ -191,7 +198,10 @@ AGG_CASES = ((70_000, 32, False), (70_000, 33, False),
 OPS = ("sum", "count", "min", "max")
 HEAT_SHAPES = ((1, 1), (24, 37), (7, 129), (64, 1000))   # (hist, nobj)
 HEAT_HIST, HEAT_OBJS = 64, 262_144   # extractor hist_len x tracked objects
-PERCIP_OBJS, PERCIP_BYTES, PERCIP_READS, SCAN_EVERY = 1024, 64 << 10, 2048, 16
+# [percip]: bench_percipience.py's traces cut from its 1,024 objects and
+# 2,048 reads to 512 and 1,024 (still two passes of the sequential and
+# strided traces), for the run's time limit
+PERCIP_OBJS, PERCIP_BYTES, PERCIP_READS, SCAN_EVERY = 512, 64 << 10, 1024, 16
 STREAM_ELEMS, STREAM_ROWS, STREAM_PRODUCERS = 4096, 4096, 4
 STREAM_WINDOW_S, STREAM_DELTA = 0.256, 262_144
 CLUSTER_NODES, CLUSTER_REPLICAS = 4, 2
@@ -264,9 +274,9 @@ ATTN_SERVED = {
     "vision-cross": (4, 64, 8, 1024, 1601, 128, False, 0, 0.0),
     "qwen2.5-train": (2, 40, 8, 2048, 2048, 128, True, 0, 0.0),  # [dist]
 }
-# the served shapes B5 also takes in bf16: [serve]'s (no bf16 path runs
-# it) and the two of whisper that [serve-bf16] drives
-ATTN_BF16 = ("serve", "whisper-encoder", "whisper-decoder")
+# the served shapes B5 also takes in bf16 (its own kernel,
+# attention_bf16.cu): every one; [serve-bf16] drives whisper's two
+ATTN_BF16 = tuple(ATTN_SERVED)
 ATTN_CASES = tuple(ATTN_SERVED.values()) + (
     (1, 4, 4, 333, 333, 64, True, 0, 0.0),        # MHA
     (2, 8, 2, 517, 517, 128, True, 100, 30.0),    # GQA
@@ -314,6 +324,8 @@ SSD_SEQ_CASE = 6               # the SSD_CASES entry also held against the oracl
 ANALYTICS_CU = "src/repro_torch/csrc/analytics_kernels.cu"
 MODEL_CU = "src/repro_torch/csrc/model_kernels.cu"
 SSM_CU = "src/repro_torch/csrc/ssm_kernels.cu"
+ATTN_BF16_CU = "src/repro_torch/csrc/attention_bf16.cu"
+SSD_BF16_CU = "src/repro_torch/csrc/ssd_bf16.cu"
 KERNELS = {   # name -> (source, TPU kernel it replaces: reference file:line)
     "fused_filter_aggregate": (ANALYTICS_CU,
                                "src/repro/analytics/kernels.py:447"),
@@ -324,8 +336,21 @@ KERNELS = {   # name -> (source, TPU kernel it replaces: reference file:line)
     "flash_attention": (MODEL_CU, "src/repro/kernels/flash_attention.py:36"),
     "rglru_scan": (MODEL_CU, "src/repro/kernels/rglru_scan.py:29"),
     "ssd_scan": (SSM_CU, "src/repro/kernels/ssd_scan.py:32"),
+    "flash_attention_bf16": (ATTN_BF16_CU,
+                             "src/repro/kernels/flash_attention.py:36"),
+    "ssd_scan_bf16": (SSD_BF16_CU, "src/repro/kernels/ssd_scan.py:32"),
 }
-MODEL_KERNELS = ("flash_attention", "rglru_scan", "ssd_scan")
+MODEL_KERNELS = ("flash_attention", "rglru_scan", "ssd_scan",
+                 "flash_attention_bf16", "ssd_scan_bf16")
+# the kernel a wrapper launches on bf16 inputs, by its f32 kernel's name
+BF16_KERNELS = {"flash_attention": "flash_attention_bf16",
+                "ssd_scan": "ssd_scan_bf16"}
+# kernels whose SASS must hold tensor-core instructions: the f32 ones
+# HMMA (mma.sync), the bf16 ones HGMMA (wgmma)
+HMMA_KERNELS = ("flash_attention_kernel", "ssd_state_kernel",
+                "ssd_out_kernel")
+HGMMA_KERNELS = ("flash_attention_bf16_kernel", "ssd_state_bf16_kernel",
+                 "ssd_out_bf16_kernel")
 AGG_PTXAS = ("fused_kernel", "segment_kernel", "combine_kernel")  # B1, B2
 BATCH_KERNELS = ("fused_filter_aggregate", "segment_reduce",
                  "window_reduce")
@@ -374,6 +399,7 @@ def phase_card_and_build(torch, ext):
         if "spill" in line:
             nums = [int(n) for n in re.findall(r"(\d+) bytes", line)]
             if any(k in entry for k in ("flash_attention_kernel",
+                                        "flash_attention_bf16_kernel",
                                         "rglru_scan_kernel")) \
                     and any(nums[1:]):
                 spills.append(entry)
@@ -400,10 +426,10 @@ def phase_card_and_build(torch, ext):
 
 
 def log_tensor_core_sass(ext):
-    """Count the tensor-core instructions (HMMA/HGMMA) in the SASS of the
-    flash-attention (B5) and SSD (B6) kernels, where the toolkit has
-    cuobjdump; every one of their kernels that multiplies must have
-    some."""
+    """Count the tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma)
+    and TMA loads (UTMALDG) in the SASS of the flash-attention (B5) and
+    SSD (B6) kernels, where the toolkit has cuobjdump; every one of their
+    kernels that multiplies must have some, the bf16 ones HGMMA."""
     from torch.utils.cpp_extension import CUDA_HOME
     tool = shutil.which("cuobjdump") or (
         str(Path(CUDA_HOME) / "bin" / "cuobjdump") if CUDA_HOME else None)
@@ -419,15 +445,18 @@ def log_tensor_core_sass(ext):
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             if "ssd" in fn or "flash_attention" in fn:
-                counts[fn] = 0
-        elif fn in counts and ("HMMA" in line or "HGMMA" in line):
-            counts[fn] += 1
-    log(f"[build] tensor-core instructions (HMMA/HGMMA) in the SASS of "
-        f"the flash-attention and SSD kernels: {json.dumps(counts)}")
-    for mma in ("flash_attention_kernel", "ssd_state_kernel",
-                "ssd_out_kernel"):
-        if not any(v > 0 for k, v in counts.items() if mma in k):
-            fail(f"{mma} has no tensor-core instruction in its SASS")
+                counts[fn] = {"HMMA": 0, "HGMMA": 0, "UTMALDG": 0}
+        elif fn in counts:
+            for op in ("HGMMA", "HMMA", "UTMALDG"):
+                if f"{op}." in line:
+                    counts[fn][op] += 1
+    log(f"[build] tensor-core instructions (HMMA/HGMMA) and TMA loads "
+        f"(UTMALDG) in the SASS of the flash-attention and SSD kernels: "
+        f"{json.dumps(counts)}")
+    for op, names in (("HMMA", HMMA_KERNELS), ("HGMMA", HGMMA_KERNELS)):
+        for mma in names:
+            if not any(v[op] > 0 for k, v in counts.items() if mma in k):
+                fail(f"{mma} has no {op} instruction in its SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -877,7 +906,7 @@ def phase_model_kernels(torch, KA, KR, KS, chk, dev):
                          f"{rel:.3e} of the (batch, head)'s max (limit "
                          f"{rtol}; max abs error {err})")
         del args, got, wants
-    bf16 = bf16_wrappers(torch, KA, KS, gen, dev)
+    bf16 = bf16_wrappers(torch, KA, KS, chk, gen, dev)
     torch.cuda.synchronize()
     log(f"[model-kernels] kernel == plain on the card: flash_attention "
         f"{chk.cases['flash_attention']} cases (MHA/GQA/MQA, window 0 and "
@@ -894,70 +923,105 @@ def phase_model_kernels(torch, KA, KR, KS, chk, dev):
         f"{ssd_rel:.3e} (limit {SSD_RTOL}; {ssd_worst}), against "
         f"ssd_reference at "
         f"SSD_CASES[{SSD_SEQ_CASE}] {seq_rel:.3e} (limit {SSD_SEQ_RTOL})")
-    log(f"[model-kernels] on bf16 inputs at the shapes the bf16 paths "
-        f"serve (cast to f32 for the kernel), the kernel's bf16 output "
-        f"against the plain version's f32 result on the same values, "
-        f"within the f32 limit of the row's or (batch, head)'s max plus "
-        f"2^-8 of |value|: " + "; ".join(
+    log(f"[model-kernels] on bf16 inputs, the bf16 kernels "
+        f"(attention_bf16.cu, ssd_bf16.cu; no f32 launch) at every "
+        f"ATTN_CASES shape ({chk.cases['flash_attention_bf16']} cases) and "
+        f"every SSD_CASES shape with and without a state "
+        f"({chk.cases['ssd_scan_bf16']}), the bf16 output against the plain "
+        f"version's f32 result on the same values, within the f32 limit "
+        f"of the row's or (batch, head)'s max plus 2^-8 of |value| (the "
+        f"state within the f32 limit): " + "; ".join(
             f"{name} max abs error {err:.3e}, max error / max "
             f"{rel:.3e}" for name, (err, rel) in bf16.items()))
 
 
-def bf16_wrappers(torch, KA, KS, gen, dev):
-    """B5 at ``ATTN_BF16``'s shapes and B6 at ``[serve-ssm]``'s (x, B, C
-    in bf16, the state f32 as the cache gives it) on bf16 inputs: each
-    output in the plain version's dtype (bf16 y, f32 state) and within
-    the f32 check's limit (``ATTN_RTOL`` of the row's largest |o|,
+def bf16_wrappers(torch, KA, KS, chk, gen, dev):
+    """B5 at every ``ATTN_CASES`` shape and B6 at every ``SSD_CASES``
+    shape, with and without a state, on bf16 inputs (x, B, C in bf16;
+    dt, a_log and the state f32, as the models give them): each call
+    launches the bf16 kernel once and the f32 one never; each output in
+    the plain version's dtype (bf16 o and y, f32 state) and within the
+    f32 check's limit (``ATTN_RTOL`` of the row's largest |o|,
     ``SSD_RTOL`` of the (batch, head)'s) plus one bf16 rounding, 2^-8 of
     |value|, of the plain version's f32 result on the same values; the
     state within ``SSD_RTOL``.  -> {name: (max abs error, max error /
     the row's or (batch, head)'s max)}."""
-    out = {}
-    for name in ATTN_BF16:
-        b, h, kv, sq, sk, hd, causal, window, cap = ATTN_SERVED[name]
+    from repro_torch import _ext
+
+    def launched_once(name, what):
+        others = {k: n for k, n in _ext.LAUNCHES.items() if n and k != name}
+        if _ext.LAUNCHES[name] != 1 or others:
+            fail(f"{what}: launched {dict(_ext.LAUNCHES)}, expected {name} "
+                 f"once and nothing else")
+
+    out, worst = {}, 0.0
+    for b, h, kv, sq, sk, hd, causal, window, cap in ATTN_CASES:
         q, k, v = (t.bfloat16() for t in attn_inputs(
             torch, gen, dev, b, h, kv, sq, sk, hd))
         kw = dict(scale=hd ** -0.5, causal=causal, window=window,
                   softcap=cap)
+        what = (f"flash_attention on bf16 inputs b={b} h={h} kv={kv} "
+                f"sq={sq} sk={sk} hd={hd} causal={causal} window={window} "
+                f"softcap={cap}")
+        _ext.reset_launch_counts()
         got = KA.flash_attention_kernel(q, k, v, **kw)
+        launched_once("flash_attention_bf16", what)
         want = KA.flash_attention_plain(q.float(), k.float(), v.float(),
                                         **kw)
-        what = f"flash_attention on bf16 inputs at {name}'s shape"
         if got.dtype != torch.bfloat16 or got.shape != want.shape or \
                 not bool(torch.isfinite(got).all()):
             fail(f"{what}: {got.dtype} {tuple(got.shape)} or non-finite")
         err = (got.float() - want).abs()
         row = want.abs().amax(-1, keepdim=True)
-        out[f"B5 {name}"] = (float(err.max()), float(
-            (err / row.clamp_min(1e-30)).max()))
+        chk.cases["flash_attention_bf16"] += 1
+        chk.err["flash_attention_bf16"] = max(
+            chk.err["flash_attention_bf16"], float(err.max()))
+        worst = max(worst, float((err / row.clamp_min(1e-30)).max()))
         if not bool((err <= ATTN_RTOL * row + 2.0 ** -8 * want.abs()).all()):
             fail(f"{what}: kernel and plain differ by more than "
                  f"{ATTN_RTOL} of the row's max plus 2^-8 of |o| (max abs "
                  f"error {float(err.max())})")
         del q, k, v, got, want, err, row
-    b, s_, h, p, n, g, chunk, with_s0 = SSD_CASES[0]
-    args = list(ssd_inputs(torch, gen, dev, b, s_, h, p, n, g, with_s0))
-    for j in (0, 3, 4):
-        args[j] = args[j].bfloat16()
-    y, final = KS.ssd_scan(*args[:5], chunk=chunk, initial_state=args[5])
-    wy, wf = KS.ssd_chunked(*(t.float() for t in args[:5]), chunk,
-                            initial_state=args[5])
-    what = (f"ssd_scan on bf16 x, B, C at [serve-ssm]'s shape (b={b} "
-            f"s={s_} h={h} p={p} n={n})")
-    if (y.dtype, final.dtype) != (torch.bfloat16, torch.float32) or \
-            not bool(torch.isfinite(y).all() & torch.isfinite(final).all()):
-        fail(f"{what}: y {y.dtype}, state {final.dtype}, or non-finite")
-    err = (y.float() - wy).abs()
-    scale = wy.abs().amax(dim=(1, 3), keepdim=True)
-    ferr, frel = ssd_error(final, wf, (2, 3))
-    out["B6 serve-ssm y"] = (float(err.max()), float(
-        (err / scale.clamp_min(1e-30)).max()))
-    out["B6 serve-ssm state"] = (ferr, frel)
-    if not bool((err <= SSD_RTOL * scale + 2.0 ** -8 * wy.abs()).all()) or \
-            not frel <= SSD_RTOL:
-        fail(f"{what}: y beyond {SSD_RTOL} of the (batch, head)'s max plus "
-             f"2^-8 of |y| (max abs error {float(err.max())}), or the "
-             f"state {frel:.3e} of its max")
+    out["B5"] = (chk.err["flash_attention_bf16"], worst)
+    worst_y = worst_s = 0.0
+    for with_state in (True, False):
+        for b, s_, h, p, n, g, chunk, _ in SSD_CASES:
+            args = list(ssd_inputs(torch, gen, dev, b, s_, h, p, n, g,
+                                   with_state))
+            for j in (0, 3, 4):         # x, B, C; dt, a_log and the state f32
+                args[j] = args[j].bfloat16()
+            what = (f"ssd_scan on bf16 x, B, C b={b} s={s_} h={h} p={p} "
+                    f"n={n} g={g} initial_state={with_state}")
+            _ext.reset_launch_counts()
+            y, final = KS.ssd_scan(*args[:5], chunk=chunk,
+                                   initial_state=args[5])
+            launched_once("ssd_scan_bf16", what)
+            wy, wf = KS.ssd_chunked(*(t.float() for t in args[:5]), chunk,
+                                    initial_state=args[5])
+            if (y.dtype, final.dtype) != (torch.bfloat16, torch.float32) or \
+                    y.shape != wy.shape or final.shape != wf.shape or \
+                    not bool(torch.isfinite(y).all()
+                             & torch.isfinite(final).all()):
+                fail(f"{what}: y {y.dtype}, state {final.dtype}, or "
+                     f"non-finite")
+            err = (y.float() - wy).abs()
+            scale = wy.abs().amax(dim=(1, 3), keepdim=True)
+            ferr, frel = ssd_error(final, wf, (2, 3))
+            chk.cases["ssd_scan_bf16"] += 1
+            chk.err["ssd_scan_bf16"] = max(chk.err["ssd_scan_bf16"],
+                                           float(err.max()), ferr)
+            worst_y = max(worst_y, float((err / scale.clamp_min(1e-30)
+                                          ).max()))
+            worst_s = max(worst_s, frel)
+            if not bool((err <= SSD_RTOL * scale + 2.0 ** -8 * wy.abs()
+                         ).all()) or not frel <= SSD_RTOL:
+                fail(f"{what}: y beyond {SSD_RTOL} of the (batch, head)'s "
+                     f"max plus 2^-8 of |y| (max abs error "
+                     f"{float(err.max())}), or the state {frel:.3e} of its "
+                     f"max")
+            del args, y, final, wy, wf, err, scale
+    out["B6 y"] = (chk.err["ssd_scan_bf16"], worst_y)
+    out["B6 state"] = (chk.err["ssd_scan_bf16"], worst_s)
     return out
 
 
@@ -1154,8 +1218,8 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     del q, k, v, k16, v16, mask
 
     # B5 at the other served shapes (ATTN_SERVED) in f32, then at
-    # ATTN_BF16's on bf16 inputs (the configs' default dtype, cast to f32
-    # for the kernel; the bound reads and writes 2-byte elements at the
+    # ATTN_BF16's on bf16 inputs (the configs' default dtype, through
+    # attention_bf16.cu; the bound reads and writes 2-byte elements at the
     # bf16 tensor-core rate); the yardstick is SDPA's causal or unmasked
     # form over K/V expanded to every head, or at [serve]'s shape its
     # window-causal boolean mask
@@ -1192,6 +1256,9 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
             f"{'bf16' if bf16 else 'f32'} ({pairs} visible pairs per head)")
         del q, k, v, kx, vx, sdpa
     del qi, ki
+    # the bf16 kernel's row of the kernels line: whisper's encoder, where
+    # [serve-bf16] spends most of its B5 time
+    out["flash_attention_bf16"] = out["flash_attention@whisper-encoder@bf16"]
 
     b, s_, h, p, n, g, chunk, with_s0 = SSD_CASES[0]
     args = list(ssd_inputs(torch, gen, dev, b, s_, h, p, n, g, with_s0))
@@ -1208,6 +1275,9 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
         bound_flops=ssd_flops(b, s_, h, p, n, 1), flops_rate=BF16_FLOPS,
         shape=f"b={b} s={s_} h={h} p={p} n={n} g={g} x, B, C bf16, "
         f"state f32, counted at chunk 1")
+    out["ssd_scan_bf16"] = out["ssd_scan@bf16"]
+    log_ssd_launches(torch, lambda: KS.ssd_scan(
+        *args[:5], chunk=chunk, initial_state=args[5]), "ssd_scan@bf16")
     del args
 
     # B7: one RG-LRU layer of the [serve] prefill (h0 from the cache); no
@@ -1241,10 +1311,12 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
         f"{ssd_flops(b, s_, h, p, n, 64)} FLOP, the reference's chunk "
         f"{chunk} {ssd_flops(b, s_, h, p, n, chunk)}")
     log_ssd_launches(torch, lambda: KS.ssd_scan(
-        *args[:5], chunk=chunk, initial_state=args[5]))
+        *args[:5], chunk=chunk, initial_state=args[5]), "ssd_scan")
     del args
 
     for name, r in out.items():
+        if name in BF16_KERNELS.values():
+            continue                    # logged under its shape's name
         bytes_ms = r["bound_bytes"] / HBM_BYTES_PER_S * 1e3
         rate = r.get("flops_rate", F32_FLOPS)
         ops_ms = r.get("bound_flops", 0) / rate * 1e3
@@ -1277,7 +1349,7 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     return out
 
 
-def log_ssd_launches(torch, call):
+def log_ssd_launches(torch, call, label):
     """Device ms of each of B6's launches in one ``call`` (torch.profiler,
     self device time by kernel name)."""
     from torch.autograd import DeviceType
@@ -1292,10 +1364,10 @@ def log_ssd_launches(torch, call):
         if m and e.device_type == DeviceType.CUDA:
             parts[m.group(0)] = e.self_device_time_total / e.count / 1e3
     if not any(parts.values()):
-        log("[timing] ssd_scan launches: the profiler saw no device time "
-            "(not measured)")
+        log(f"[timing] {label} launches: the profiler saw no device time "
+            f"(not measured)")
         return
-    log(f"[timing] ssd_scan launches in one call (torch.profiler, device "
+    log(f"[timing] {label} launches in one call (torch.profiler, device "
         f"ms): {json.dumps(parts)}")
 
 
@@ -1597,8 +1669,8 @@ def percip_traces():
 
 def phase_percip_store(torch, H, K, dev):
     """[percip] the store path: each trace replayed on a fresh store of
-    1,024 objects of 64 KiB on T3, predictive (percipience, its policy
-    scoring an HsmDaemon scan every 16 reads) and reactive (the default
+    ``PERCIP_OBJS`` objects of 64 KiB on T3, predictive (percipience, its
+    policy scoring an HsmDaemon scan every 16 reads) and reactive (the default
     CountingScorer).  After each predictive replay the policy's heat at
     a fixed ``now`` must equal the numpy closed form, and the kernel
     route the plain route."""
@@ -2162,7 +2234,9 @@ def profile_decode(torch, step, n, tag="serve"):
                   f"ms/step x{e.count // n}" for e in top))
 
 
-KERNEL_TAGS = {"flash_attention": "B5", "ssd_scan": "B6", "rglru_scan": "B7"}
+KERNEL_TAGS = {"flash_attention": "B5", "ssd_scan": "B6", "rglru_scan": "B7",
+               "flash_attention_bf16": "B5", "ssd_scan_bf16": "B6"}
+F32_NAMES = {bf: f32 for f32, bf in BF16_KERNELS.items()}
 
 
 def phase_serve(torch, ext, cfg, dev, *, tag="serve",
@@ -2210,6 +2284,10 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
             kinds.count("local") + kinds.count("global")
             + kinds.count("cross") + 2 * kinds.count("encdec") + encoder),
         "rglru_scan": kinds.count("rglru"), "ssd_scan": kinds.count("ssd")}
+    if cfg.dtype == "bfloat16":         # B5 and B6 launch their bf16 kernels
+        want_launches = {BF16_KERNELS.get(k, k): n
+                         for k, n in want_launches.items()}
+    want_launches = {k: want_launches.get(k, 0) for k in MODEL_KERNELS}
     used = [k for k in MODEL_KERNELS if want_launches[k]]
     n_params = mdl.count_params_analytic(cfg)
     if n_params != expect_params:
@@ -2265,7 +2343,7 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
             fail(f"[{tag}] tokens or logits of the wrong shape, or "
                  "non-finite logits")
         prefill_ms = stats["prefill_s"] * 1e3
-        parts = [(KERNEL_TAGS[k], kms[k]) for k in used]
+        parts = [(KERNEL_TAGS[k], kms[F32_NAMES.get(k, k)]) for k in used]
         if cfg.is_moe:
             parts += [(f"MoE {MOE_STEPS[n]}", kms[n]) for n in MOE_STEPS]
         rest = prefill_ms - sum(ms for _, ms in parts)
@@ -2527,17 +2605,18 @@ def encoder_check(torch, ext, params, cfg, dev, tag, frames):
     plain bf16 encoder's, as ``plain_path``'s logits."""
     from repro_torch.models import model as mdl
     bf16 = cfg.dtype == "bfloat16"
+    name = "flash_attention_bf16" if bf16 else "flash_attention"
     ext.reset_launch_counts()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     got = mdl._encode(params, frames, cfg, use_kernels=True)
     torch.cuda.synchronize(dev)
     kernel_s = time.perf_counter() - t0
-    launches = ext.LAUNCHES["flash_attention"]
+    launches = ext.LAUNCHES[name]
     if launches != cfg.n_encoder_layers or sum(ext.LAUNCHES.values()) != \
             launches:
         fail(f"[{tag}] the encoder launched {dict(ext.LAUNCHES)}, expected "
-             f"flash_attention {cfg.n_encoder_layers} times")
+             f"{name} {cfg.n_encoder_layers} times")
     t0 = time.perf_counter()
     want = mdl._encode(params, frames, cfg, use_kernels=False)
     torch.cuda.synchronize(dev)
@@ -3341,12 +3420,14 @@ def main() -> int:
         prompt=VISION_PROMPT, gen=VISION_GEN))
     lap("serve-vision")
     # the configs' own default dtype, bf16 (C18)
-    phase_serve(torch, _ext, get_config(SSM_ARCH), dev, tag="serve-bf16",
-                expect_params=SSM_PARAMS, batch=SSM_BATCH,
-                prompt=SSM_PROMPT, gen=SSM_GEN)
-    phase_serve(torch, _ext, get_config(WHISPER_ARCH), dev,
-                tag="serve-bf16", expect_params=WHISPER_PARAMS,
-                batch=WHISPER_BATCH, prompt=WHISPER_PROMPT, gen=WHISPER_GEN)
+    launches.update(phase_serve(
+        torch, _ext, get_config(SSM_ARCH), dev, tag="serve-bf16",
+        expect_params=SSM_PARAMS, batch=SSM_BATCH, prompt=SSM_PROMPT,
+        gen=SSM_GEN))
+    launches.update(phase_serve(
+        torch, _ext, get_config(WHISPER_ARCH), dev, tag="serve-bf16",
+        expect_params=WHISPER_PARAMS, batch=WHISPER_BATCH,
+        prompt=WHISPER_PROMPT, gen=WHISPER_GEN))
     lap("serve-bf16")
     trained, train_ms = phase_train(torch, _ext, KS, dev, smi)
     lap("train")

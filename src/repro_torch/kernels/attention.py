@@ -2,9 +2,10 @@
 model-layout entry point.
 
 ``flash_attention_kernel`` launches ``sage_flash_attention``
-(``csrc/model_kernels.cu``) on CUDA tensors and runs
-``flash_attention_plain`` on CPU tensors; on a CUDA tensor it launches or
-raises, it never falls back.  It replaces
+(``csrc/model_kernels.cu``) on f32 CUDA tensors and
+``sage_flash_attention_bf16`` (``csrc/attention_bf16.cu``) on bf16 ones,
+and runs ``flash_attention_plain`` on CPU tensors; on a CUDA tensor it
+launches or raises, it never falls back.  It replaces
 ``repro/kernels/flash_attention.py`` ``_attn_kernel`` and takes its
 layout: q (b, h, sq, hd), k/v (b, kv, sk, hd).  ``flash_attention`` takes
 the model layout (b, s, heads, hd), as ``repro.kernels.ops.flash_attention``
@@ -22,7 +23,8 @@ from repro_torch.kernels.grad import wants_grad, with_plain_grad
 from repro_torch.kernels.sharded import (is_distributed, require_local,
                                          run_local)
 
-# the input types the CUDA route takes; the kernel itself reads f32
+# the input types the CUDA route takes: f32 q, k, v launch the f32
+# kernel, bf16 ones the bf16 kernel (each reads its own type)
 KERNEL_DTYPES = {torch.float32, torch.bfloat16}
 
 
@@ -82,10 +84,11 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            ) -> torch.Tensor:
     """q (b, h, sq, hd); k/v (b, kv, sk, hd) with h % kv == 0; returns
     (b, h, sq, hd) in q.dtype.  A CUDA tensor launches
-    ``sage_flash_attention`` (f32 or bf16, contiguous, hd in {64, 128,
-    256}; bf16 is cast to f32 for the kernel); a CPU tensor runs
-    ``flash_attention_plain``.  Where autograd records and an input
-    requires grad, the CUDA route still launches the kernel, and its
+    ``sage_flash_attention`` on f32 q, k, v or ``sage_flash_attention_bf16``
+    on bf16 ones (contiguous, hd in {64, 128, 256}; the three of one
+    type); a CPU tensor runs ``flash_attention_plain``.  Where autograd
+    records and an input requires grad, the CUDA route still launches
+    the kernel, and its
     backward is the gradient of ``flash_attention_plain`` recomputed from
     the saved inputs (``kernels.grad``).  ``DTensor`` inputs run this on
     each rank's batch rows and heads (``kernels.sharded``)."""
@@ -105,18 +108,17 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch(q, k, v, *, scale, causal, window, softcap):
-    """One launch of ``sage_flash_attention`` on checked CUDA inputs.
-    The kernel computes in f32: bf16 inputs are cast to f32 here (a copy
-    each, which also starts on a fresh 16-byte boundary) and the output
-    comes back in q.dtype, as ``flash_attention_plain``'s does."""
+    """One launch on checked CUDA inputs: ``sage_flash_attention`` on f32
+    q, k, v, ``sage_flash_attention_bf16`` on bf16 ones (no copy; TMA
+    reads them where they lie), the output in their type.  No caller
+    mixes the two types, so a mix is refused."""
     require_local(q, k, v)
-    if not {q.dtype, k.dtype, v.dtype} <= KERNEL_DTYPES:
-        raise TypeError(f"sage_flash_attention takes float32 or bfloat16, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    dtypes = {q.dtype, k.dtype, v.dtype}
+    if len(dtypes) != 1 or not dtypes <= KERNEL_DTYPES:
+        raise TypeError(f"flash attention takes q, k, v all float32 or all "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("sage_flash_attention takes contiguous q, k, v")
-    out_dtype = q.dtype
-    q, k, v = (t.float() for t in (q, k, v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("sage_flash_attention takes q, k, v starting on a "
                          "16-byte boundary (it copies rows 16 bytes at a "
@@ -128,17 +130,19 @@ def _launch(q, k, v, *, scale, causal, window, softcap):
                          f"256, got {hd}")
     out = torch.empty_like(q)
     if sq == 0 or sk == 0 or b == 0:
-        return out.zero_().to(out_dtype)
+        return out.zero_()
     from repro_torch import _ext
+    name = ("flash_attention_bf16" if q.dtype == torch.bfloat16
+            else "flash_attention")
     lib = _ext.library()
     with torch.cuda.device(q.device):
-        err = lib.sage_flash_attention(
+        err = getattr(lib, f"sage_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
             kvh, sq, sk, hd, float(scale), int(bool(causal)), int(window),
             float(softcap), torch.cuda.current_stream(q.device).cuda_stream)
-    _ext.check(lib, err, "flash_attention")
-    count_launch("flash_attention")
-    return out.to(out_dtype)
+    _ext.check(lib, err, name)
+    count_launch(name)
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

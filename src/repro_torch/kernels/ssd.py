@@ -1,9 +1,11 @@
 """Mamba2 SSD chunked scan (B6): the wrapper and its plain PyTorch version.
 
 ``ssd_scan`` launches ``sage_ssd_scan`` (``csrc/ssm_kernels.cu``) on CUDA
-tensors and runs ``ssd_chunked``, the reference's chunked algorithm
-(arXiv:2405.21060 §6) written as explicit steps, on CPU tensors; on a
-CUDA tensor it launches or raises, it never falls back.  It replaces
+tensors with f32 x, B, C and ``sage_ssd_scan_bf16`` (``csrc/ssd_bf16.cu``)
+on ones with bf16 x, B, C, and runs ``ssd_chunked``, the reference's
+chunked algorithm (arXiv:2405.21060 §6) written as explicit steps, on
+CPU tensors; on a CUDA tensor it launches or raises, it never falls
+back.  It replaces
 ``repro/kernels/ssd_scan.py`` ``_ssd_kernel`` and takes the model layout
 of ``repro.kernels.ops.ssd_scan``: x (b, s, h, p); dt (b, s, h) after
 softplus; a_log (h,) (A = -exp(a_log)); B, C (b, s, g, n) with h % g == 0,
@@ -29,7 +31,8 @@ from repro_torch.kernels.sharded import (is_distributed, require_local,
                                          run_local)
 
 KERNEL_STATES = (16, 32, 64, 128, 256)   # state sizes n the kernel takes
-# the input types the CUDA route takes; the kernel itself reads f32
+# the input types the CUDA route takes: f32 x, B, C launch the f32
+# kernel, bf16 ones the bf16 kernel (dt, a_log and the state f32 in both)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # rows per chunk of the kernel's states and per sub-chunk of its scores:
 # the scratch is sized by them, and the kernel refuses any other pair
@@ -157,12 +160,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              initial_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (b, s, h, p) in x.dtype, final state (b, h, p, n) f32).
-    A CUDA tensor launches ``sage_ssd_scan`` (f32 or bf16, cast to f32
-    for the kernel; contiguous; n in ``KERNEL_STATES``): its four
+    A CUDA tensor launches ``sage_ssd_scan`` on f32 x, B, C: its four
     kernels take each 64-row sub-chunk's C·Bᵀ once per group and the
     state at every ``KERNEL_CHUNK`` rows through scratch allocated here
     ((b, g, s/64, 64, 64) and (b, h, nc, p, n) f32), and walk each chunk
     in ``KERNEL_SUB``-row sub-chunks on the tensor cores (split TF32).
+    On bf16 x, B, C it launches ``sage_ssd_scan_bf16`` (bf16 tensor
+    cores, three kernels: the C·Bᵀ of each sub-chunk is taken where it is
+    used, so only the states' scratch).  Both take contiguous inputs and
+    n in ``KERNEL_STATES``.
     The chunked form is exact for any chunk
     length, so ``chunk`` only sets the plain version's chunks and the two
     differ by rounding.  A CPU tensor runs ``ssd_chunked``.
@@ -197,51 +203,65 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def _launch(x, dt, a_log, B, C, initial_state):
-    """One launch of ``sage_ssd_scan`` on checked CUDA inputs.  The
-    kernel reads f32: bf16 x, B, C or state are cast to f32 here (a copy
-    each) and y comes back in x.dtype, the state in f32, as from
-    ``ssd_chunked``."""
+    """One launch on checked CUDA inputs: ``sage_ssd_scan`` on f32 x, B, C
+    (other inputs cast to f32), ``sage_ssd_scan_bf16`` on bf16 ones (no
+    copy of x, B or C; dt, a_log and the state cast to f32, which they
+    already are in the models: only tests/test_torch_cuda.py's
+    ``test_ssd_kernel_takes_bf16`` hands in a bf16 state).  y comes back
+    in x.dtype, the state in f32, as from ``ssd_chunked``.  No caller
+    mixes the types of x, B and C, so a mix is refused."""
     require_local(x, dt, a_log, B, C, initial_state)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     tensors = (x, dt, a_log, B, C) + (
         () if initial_state is None else (initial_state,))
-    if any(t.dtype not in KERNEL_DTYPES for t in tensors):
-        raise TypeError(f"sage_ssd_scan takes float32 or bfloat16 inputs, "
-                        f"got {sorted({str(t.dtype) for t in tensors})}")
+    if any(t.dtype not in KERNEL_DTYPES for t in tensors) or \
+            not x.dtype == B.dtype == C.dtype:
+        raise TypeError(f"sage_ssd_scan takes float32 or bfloat16 inputs, x, "
+                        f"B and C of one type; got x {x.dtype}, B {B.dtype}, "
+                        f"C {C.dtype}, dt {dt.dtype}, a_log {a_log.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("sage_ssd_scan takes contiguous inputs")
-    out_dtype = x.dtype
-    x, dt, a_log, B, C = (t.float() for t in (x, dt, a_log, B, C))
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        dt, a_log = dt.float(), a_log.float()
+    else:
+        x, dt, a_log, B, C = (t.float() for t in (x, dt, a_log, B, C))
     if initial_state is not None:
         initial_state = initial_state.float()
-    tensors = (x, dt, a_log, B, C) + (
-        () if initial_state is None else (initial_state,))
-    if any(t.data_ptr() % 16 for t in tensors[3:]):
+    if any(t.data_ptr() % 16 for t in (B, C) + tensors[5:]):
         raise ValueError("sage_ssd_scan loads B, C and the initial state "
-                         "as float4: each must start on 16 bytes")
+                         "16 bytes at a time: each must start on 16 bytes")
     if n not in KERNEL_STATES:
         raise ValueError(f"sage_ssd_scan takes a state size n in "
                          f"{KERNEL_STATES}, got {n}")
-    y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     nc = -(-s // KERNEL_CHUNK)
     states = torch.empty((b, h, nc, p, n), dtype=torch.float32,
                          device=x.device)
     decay = torch.empty((b, h, nc), dtype=torch.float32, device=x.device)
-    scores = torch.empty((b, g, -(-s // KERNEL_SUB), KERNEL_SUB, KERNEL_SUB),
-                         dtype=torch.float32, device=x.device)
+    state_in = None if initial_state is None else initial_state.data_ptr()
     from repro_torch import _ext
     lib = _ext.library()
+    name = "ssd_scan_bf16" if bf16 else "ssd_scan"
     with torch.cuda.device(x.device):
-        err = lib.sage_ssd_scan(
-            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), B.data_ptr(),
-            C.data_ptr(),
-            None if initial_state is None else initial_state.data_ptr(),
-            b, s, h, p, g, n, y.data_ptr(), final.data_ptr(),
-            states.data_ptr(), decay.data_ptr(), scores.data_ptr(),
-            KERNEL_CHUNK, KERNEL_SUB,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _ext.check(lib, err, "ssd_scan")
-    count_launch("ssd_scan")
-    return y.to(out_dtype), final
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if bf16:
+            err = lib.sage_ssd_scan_bf16(
+                x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), B.data_ptr(),
+                C.data_ptr(), state_in, b, s, h, p, g, n, y.data_ptr(),
+                final.data_ptr(), states.data_ptr(), decay.data_ptr(),
+                KERNEL_CHUNK, KERNEL_SUB, stream)
+        else:
+            scores = torch.empty((b, g, -(-s // KERNEL_SUB), KERNEL_SUB,
+                                  KERNEL_SUB), dtype=torch.float32,
+                                 device=x.device)
+            err = lib.sage_ssd_scan(
+                x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), B.data_ptr(),
+                C.data_ptr(), state_in, b, s, h, p, g, n, y.data_ptr(),
+                final.data_ptr(), states.data_ptr(), decay.data_ptr(),
+                scores.data_ptr(), KERNEL_CHUNK, KERNEL_SUB, stream)
+    _ext.check(lib, err, name)
+    count_launch(name)
+    return y, final

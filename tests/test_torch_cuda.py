@@ -425,12 +425,29 @@ def test_flash_attention_kernel_matches_plain(dev, b, h, kv, sq, sk, hd,
     assert bool(((got - want).abs() <= 1e-4 * row).all())
 
 
-@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal", [
-    (2, 4, 4, 300, 300, 64, False), (1, 16, 2, 256, 256, 128, True),
-    (1, 16, 2, 256, 321, 128, False)])
+# every head_dim, MHA/GQA/MQA, windows (inside a key tile too), soft-caps,
+# sq != sk with sk not a multiple of the key tile, one query row, and
+# grids of one and two consumer warpgroups a block
+BF16_ATTN_CASES = [(2, 4, 4, 300, 300, 64, False, 0, 0.0),
+                   (1, 16, 2, 256, 256, 128, True, 0, 0.0),
+                   (1, 16, 2, 256, 321, 128, False, 0, 0.0),
+                   (2, 8, 2, 517, 517, 128, True, 100, 30.0),
+                   (1, 8, 1, 129, 129, 256, False, 0, 0.0),
+                   (1, 8, 2, 250, 250, 256, True, 17, 0.0),
+                   (2, 4, 2, 77, 1001, 256, False, 0, 30.0),
+                   (1, 4, 1, 45, 300, 64, False, 0, 0.0),
+                   (3, 6, 3, 1000, 1000, 64, True, 256, 30.0),
+                   (1, 1, 1, 1, 1, 64, True, 0, 0.0),
+                   (2, 40, 8, 600, 600, 128, True, 0, 0.0),
+                   (4, 16, 1, 1100, 1100, 256, True, 512, 0.0)]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal,window,softcap",
+                         BF16_ATTN_CASES)
 def test_flash_attention_kernel_takes_bf16(dev, b, h, kv, sq, sk, hd,
-                                           causal):
-    """bf16 q, k, v (the models' default dtype, C18): one launch, a bf16
+                                           causal, window, softcap):
+    """bf16 q, k, v (the models' default dtype, C18): one launch of the
+    bf16 kernel (attention_bf16.cu) and none of the f32 one, a bf16
     output within 1e-4 of the row's max |o| plus one bf16 rounding (2^-8
     of |o|) of the plain version's f32 result on the same values."""
     from repro_torch import _ext
@@ -441,16 +458,31 @@ def test_flash_attention_kernel_takes_bf16(dev, b, h, kv, sq, sk, hd,
     q, k, v = (torch.randn(shape, generator=g, device=dev).bfloat16()
                for shape in ((b, h, sq, hd), (b, kv, sk, hd),
                              (b, kv, sk, hd)))
-    kw = dict(scale=hd ** -0.5, causal=causal)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+              softcap=softcap)
     _ext.reset_launch_counts()
     got = flash_attention_kernel(q, k, v, **kw)
-    assert _ext.LAUNCHES["flash_attention"] == 1
+    assert _ext.LAUNCHES["flash_attention_bf16"] == 1
+    assert _ext.LAUNCHES["flash_attention"] == 0
     assert got.dtype == torch.bfloat16
     assert flash_attention_plain(q, k, v, **kw).dtype == torch.bfloat16
     want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
     row = want.abs().amax(-1, keepdim=True)
     err = (got.float() - want).abs()
     assert bool((err <= 1e-4 * row + 2.0 ** -8 * want.abs()).all())
+
+
+def test_flash_attention_kernel_refuses_a_mix_of_types(dev):
+    """No caller mixes f32 and bf16 q, k, v: a mix is refused before any
+    launch, not cast."""
+    from repro_torch import _ext
+    from repro_torch.kernels import flash_attention_kernel
+    q = torch.zeros((1, 2, 8, 64), device=dev)
+    k = torch.zeros((1, 2, 8, 64), device=dev, dtype=torch.bfloat16)
+    _ext.reset_launch_counts()
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        flash_attention_kernel(q, k, k.clone(), scale=0.125)
+    assert sum(_ext.LAUNCHES.values()) == 0
 
 
 def test_flash_attention_kernel_refuses_rows_off_16_bytes(dev):
@@ -566,30 +598,37 @@ def test_ssd_kernel_matches_plain(dev, b, s, h, p, n, g, chunk, with_state):
         assert bool(((gt - w).abs() <= 1e-4 * scale).all())
 
 
+@pytest.mark.parametrize("b,s,h,p,n,g", [(2, 300, 8, 64, 128, 1),
+                                         (3, 77, 8, 16, 16, 1),
+                                         (1, 130, 3, 40, 32, 3),
+                                         (1, 600, 4, 40, 256, 2),
+                                         (1, 300, 2, 6, 32, 1),
+                                         (2, 513, 4, 64, 64, 2)])
 @pytest.mark.parametrize("with_state", [False, True])
-def test_ssd_kernel_takes_bf16(dev, with_state):
-    """bf16 x, B, C and state (C18): one launch, y in bf16 and the state
-    in f32, as ``ssd_chunked`` gives them; y within 1e-4 of the (batch,
+def test_ssd_kernel_takes_bf16(dev, with_state, b, s, h, p, n, g):
+    """bf16 x, B, C and state (C18): one launch of the bf16 kernel
+    (ssd_bf16.cu) and none of the f32 one, y in bf16 and the state in
+    f32, as ``ssd_chunked`` gives them; y within 1e-4 of the (batch,
     head)'s max plus one bf16 rounding (2^-8 of |y|) of the plain
     version's f32 result on the same values, the state within 1e-4."""
     from repro_torch import _ext
     from repro_torch.kernels import ssd
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    b, s, h, p, n = 2, 300, 8, 64, 128
 
     def r(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale
                 ).bfloat16()
-    x, B, C = r(b, s, h, p), r(b, s, 1, n, scale=0.5), \
-        r(b, s, 1, n, scale=0.5)
+    x, B, C = r(b, s, h, p), r(b, s, g, n, scale=0.5), \
+        r(b, s, g, n, scale=0.5)
     dt = torch.nn.functional.softplus(torch.randn(
         (b, s, h), generator=gen, device=dev))
     a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
     s0 = r(b, h, p, n, scale=0.5) if with_state else None
     _ext.reset_launch_counts()
     y, final = ssd.ssd_scan(x, dt, a_log, B, C, initial_state=s0)
-    assert _ext.LAUNCHES["ssd_scan"] == 1
+    assert _ext.LAUNCHES["ssd_scan_bf16"] == 1
+    assert _ext.LAUNCHES["ssd_scan"] == 0
     py, pf = ssd.ssd_chunked(x, dt, a_log, B, C, 256, s0)
     assert (y.dtype, final.dtype) == (py.dtype, pf.dtype) == (
         torch.bfloat16, torch.float32)
@@ -600,6 +639,20 @@ def test_ssd_kernel_takes_bf16(dev, with_state):
                  + 2.0 ** -8 * wy.abs()).all())
     fscale = wf.abs().amax(dim=(2, 3), keepdim=True)
     assert bool(((final - wf).abs() <= 1e-4 * fscale).all())
+
+
+def test_ssd_kernel_refuses_a_mix_of_types(dev):
+    """No caller mixes f32 and bf16 among x, B and C: a mix is refused
+    before any launch, not cast."""
+    from repro_torch import _ext
+    from repro_torch.kernels import ssd
+    x = torch.randn(1, 64, 2, 8, device=dev)
+    dt = torch.rand(1, 64, 2, device=dev)
+    B = torch.randn(1, 64, 1, 16, device=dev).bfloat16()
+    _ext.reset_launch_counts()
+    with pytest.raises(TypeError, match="x, B and C of one type"):
+        ssd.ssd_scan(x, dt, torch.zeros(2, device=dev), B, B.clone())
+    assert sum(_ext.LAUNCHES.values()) == 0
 
 
 @pytest.mark.parametrize("const,value", [("KERNEL_CHUNK", 128),
@@ -750,9 +803,9 @@ def test_ssd_gradient_matches_plain(dev, b, s, h, p, n, g, chunk,
 
 
 def test_bf16_gradients_through_b5_and_b6(dev):
-    """bf16 inputs that require grad: the kernel forward, the plain
-    recompute in the backward, and every gradient in bf16 (each input's
-    dtype), as the plain path's."""
+    """bf16 inputs that require grad: the bf16 kernels' forward, the
+    plain recompute in the backward, and every gradient in bf16 (each
+    input's dtype), as the plain path's."""
     from repro_torch.kernels import attention as KA
     from repro_torch.kernels import ssd as KS
     g = torch.Generator(device=dev)
@@ -767,7 +820,8 @@ def test_bf16_gradients_through_b5_and_b6(dev):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             **kw).transpose(1, 2)
     _grads_match(dev, lambda q, k, v: KA.flash_attention(q, k, v, **kw),
-                 plain, [q, k, v], "flash_attention", dtype=torch.bfloat16)
+                 plain, [q, k, v], "flash_attention_bf16",
+                 dtype=torch.bfloat16)
     x = torch.randn((1, 77, 4, 32), generator=g, device=dev).bfloat16()
     dt = torch.rand((1, 77, 4), generator=g, device=dev) * 0.1
     a_log = torch.randn(4, generator=g, device=dev) * 0.5
@@ -775,7 +829,7 @@ def test_bf16_gradients_through_b5_and_b6(dev):
                         ).bfloat16() * 0.3 for _ in range(2))
     _grads_match(dev, lambda *t: KS.ssd_scan(*t, chunk=16),
                  lambda *t: KS.ssd_chunked(*t, 16), [x, dt, a_log, B, C],
-                 "ssd_scan", dtype=None)
+                 "ssd_scan_bf16", dtype=None)
 
 
 def test_wrappers_without_grad_keep_their_path(dev):
@@ -1005,8 +1059,8 @@ def test_vision_server_kernel_path_matches_plain_path_on_cuda(dev, tmp_path):
 def test_mamba2_bf16_server_kernel_path_matches_plain_path_on_cuda(
         dev, tmp_path):
     """C18's acceptance: a narrow 3-layer mamba2 in its config's default
-    bf16 served through B6 (bf16 x, B, C cast to f32 for the kernel)
-    against the plain path in bf16 on the same weights: B6 once per
+    bf16 served through B6's bf16 kernel (ssd_bf16.cu) against the
+    plain path in bf16 on the same weights: B6 once per
     layer, logits within 3e-2 of the step's largest |logit| (both round
     their activations to bf16, 2^-8, between layers, in other places),
     and the same prefill token wherever the plain path's top two differ
@@ -1021,7 +1075,8 @@ def test_mamba2_bf16_server_kernel_path_matches_plain_path_on_cuda(
         0, cfg.vocab_real, (3, 150)).astype(np.int32)
     (out_k, st_k), (out_p, st_p) = _serve_both(dev, tmp_path, cfg, params,
                                                prompts, None)
-    assert st_k["launches"]["ssd_scan"] == 3
+    assert st_k["launches"]["ssd_scan_bf16"] == 3
+    assert st_k["launches"]["ssd_scan"] == 0
     assert sum(st_p["launches"].values()) == 0
     for a, b in zip(st_k["logits"], st_p["logits"]):
         assert a.dtype == torch.float32

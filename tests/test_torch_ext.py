@@ -67,3 +67,44 @@ def test_argtypes_match_every_launcher_in_the_sources():
     assert set(found) == set(_ext._SIGNATURES)
     for name, params in found.items():
         assert [names[t] for t in _ext._SIGNATURES[name]] == params, name
+
+
+def test_every_cu_under_csrc_is_built():
+    """Each ``.cu`` compiles in its own nvcc process, so a source that
+    ``SOURCES`` missed would leave its launchers out of the library; the
+    bf16 kernels of B5 and B6 are sources of their own."""
+    assert set(_ext.SOURCES) == set(_ext.CSRC.glob("*.cu"))
+    names = {p.name for p in _ext.SOURCES}
+    assert {"attention_bf16.cu", "ssd_bf16.cu"} <= names
+
+
+def test_bf16_launchers_are_bound_and_counted():
+    """B5 and B6 on bf16 inputs have launchers of their own, bound beside
+    the f32 ones with the same argument kinds as theirs (B6's without the
+    scores scratch), and launch counts of their own."""
+    sig = _ext._SIGNATURES
+    assert sig["sage_flash_attention_bf16"] == sig["sage_flash_attention"]
+    f32 = list(sig["sage_ssd_scan"])
+    del f32[16]                          # the scores scratch
+    assert list(sig["sage_ssd_scan_bf16"]) == f32
+    for name in ("flash_attention", "ssd_scan"):
+        assert _ext.LAUNCHES[name] == _ext.LAUNCHES[f"{name}_bf16"] == 0
+
+
+def test_the_kernel_modules_import_without_nvcc_or_triton(tmp_path):
+    """Nothing is built or imported from the toolchain when the modules
+    are imported: here there is no nvcc, no CUDA_HOME and no triton."""
+    import os
+    import subprocess
+    import sys
+    code = ("import sys; from repro_torch import _ext; "
+            "from repro_torch.kernels import attention, ssd, rglru; "
+            "assert _ext._lib is None; "
+            "assert 'triton' not in sys.modules; print('ok')")
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_HOME"}
+    env["PATH"] = str(tmp_path)
+    env["PYTHONPATH"] = str(_ext.CSRC.parents[1])
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
