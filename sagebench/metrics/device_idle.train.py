@@ -1,0 +1,9 @@
+"""The share of the traced window in which no operation ran on the
+device: 1 - the union of the trace's device intervals over the window, %."""
+
+
+def read(rec):
+    t = rec.trace
+    if t is None or t.window_s <= 0 or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
