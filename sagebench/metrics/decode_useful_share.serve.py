@@ -1,0 +1,29 @@
+"""The share of decode steps whose token the Server returns: the
+program's counts ``serve.decode_tokens_returned`` over
+``serve.decode_steps`` (each a row's), summed over the window's
+``serve.generate`` unit records, %.  The window's records are the first
+of the window's count that start at or after the traced window's start,
+on the clock the profiler and the program share."""
+
+
+def _window(rec):
+    try:
+        from repro_torch import trace
+    except ImportError:             # a program that keeps no records
+        return None
+    if rec.trace is None or not rec.trace.lo:
+        return None
+    us = [u for u in trace.units("serve.generate")
+          if u.start_ns >= rec.trace.lo][:len(rec.units)]
+    return us if us and len(us) == len(rec.units) else None
+
+
+def read(rec):
+    us = _window(rec)
+    if us is None:
+        return None
+    steps = sum(u.counts.get("serve.decode_steps", 0) for u in us)
+    if not steps:
+        return None
+    return 100.0 * sum(u.counts.get("serve.decode_tokens_returned", 0)
+                       for u in us) / steps

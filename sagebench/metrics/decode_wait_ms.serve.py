@@ -1,0 +1,31 @@
+"""Mean host ms a decode step spends blocked on its token (the program's
+``serve.decode.wait`` spans: the read of the token to the host; the
+last step's token is never read, and its wait is the final sync), from
+the program's ``serve.generate`` unit records of the requests the
+profiler did not slow.  The window's records are the first of the
+window's count that start at or after the traced window's start, on the
+clock the profiler and the program share."""
+
+
+def _window(rec):
+    try:
+        from repro_torch import trace
+    except ImportError:             # a program that keeps no records
+        return None
+    if rec.trace is None or not rec.trace.lo:
+        return None
+    us = [u for u in trace.units("serve.generate")
+          if u.start_ns >= rec.trace.lo][:len(rec.units)]
+    return us if us and len(us) == len(rec.units) else None
+
+
+def read(rec):
+    us = _window(rec)
+    if us is None:
+        return None
+    steady = us[rec.traced:] or us
+    steps = sum(u.counts.get("serve.decode_steps", 0) for u in steady)
+    if not steps:
+        return None
+    return 1e3 * sum(u.seconds.get("serve.decode.wait", 0.0)
+                     for u in steady) / steps

@@ -15,6 +15,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.core import layouts as lay
 from repro_torch.core.clovis import Clovis
 
@@ -110,7 +111,13 @@ class TokenLoader:
         return self
 
     def __next__(self) -> Dict:
-        step, batch = self._q.get()
+        """The next batch: a ``data.take`` span of ``repro_torch.trace``
+        (the wait on the queue), and the counts ``data.takes`` and
+        ``data.ready`` (batches in the queue as the take starts)."""
+        trace.count("data.takes")
+        trace.count("data.ready", self._q.qsize())
+        with trace.span("data.take"):
+            step, batch = self._q.get()
         return batch
 
     def close(self):

@@ -103,8 +103,15 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if wants_grad(q, k, v):
         return with_plain_grad(
             lambda *a: _launch(*a, **kw),
-            lambda *a: flash_attention_plain(*a, **kw), q, k, v)
+            lambda *a: flash_attention_plain(*a, **kw), q, k, v,
+            kernel=_name(q))
     return _launch(q, k, v, **kw)
+
+
+def _name(q) -> str:
+    """The launch's name (its ``_ext.LAUNCHES`` key)."""
+    return ("flash_attention_bf16" if q.dtype == torch.bfloat16
+            else "flash_attention")
 
 
 def _launch(q, k, v, *, scale, causal, window, softcap):
@@ -132,8 +139,7 @@ def _launch(q, k, v, *, scale, causal, window, softcap):
     if sq == 0 or sk == 0 or b == 0:
         return out.zero_()
     from repro_torch import _ext
-    name = ("flash_attention_bf16" if q.dtype == torch.bfloat16
-            else "flash_attention")
+    name = _name(q)
     lib = _ext.library()
     with torch.cuda.device(q.device):
         err = getattr(lib, f"sage_{name}")(

@@ -61,7 +61,8 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
     if not a.is_cuda:
         return rglru_scan_plain(a, x, h0)
     if wants_grad(*tensors):
-        return with_plain_grad(_launch, rglru_scan_plain, a, x, h0)
+        return with_plain_grad(_launch, rglru_scan_plain, a, x, h0,
+                               kernel="rglru_scan")
     return _launch(a, x, h0)
 
 

@@ -198,8 +198,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if wants_grad(*tensors):
         return with_plain_grad(
             _launch, lambda *a: ssd_chunked(*a[:5], chunk, a[5]),
-            x, dt, a_log, B, C, initial_state)
+            x, dt, a_log, B, C, initial_state, kernel=_name(x))
     return _launch(x, dt, a_log, B, C, initial_state)
+
+
+def _name(x) -> str:
+    """The launch's name (its ``_ext.LAUNCHES`` key)."""
+    return "ssd_scan_bf16" if x.dtype == torch.bfloat16 else "ssd_scan"
 
 
 def _launch(x, dt, a_log, B, C, initial_state):
@@ -244,7 +249,7 @@ def _launch(x, dt, a_log, B, C, initial_state):
     state_in = None if initial_state is None else initial_state.data_ptr()
     from repro_torch import _ext
     lib = _ext.library()
-    name = "ssd_scan_bf16" if bf16 else "ssd_scan"
+    name = _name(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if bf16:

@@ -6,8 +6,16 @@ hand-written kernels B5, B7 and B6 on the card (``use_kernels=True``,
 the default); decode is plain torch, as in the reference.  Served tokens are
 offloaded to a StreamContext consumer that appends to the port's Clovis
 (container ``servelog``, object ``stream/tokens``: int32, one row of
-``batch`` tokens per step), and each ``generate`` call leaves an ADDB
-``serve/generate`` record.
+``batch`` tokens per step).  Each ``generate`` call is a ``serve.generate``
+unit of ``repro_torch.trace`` (attributes ``batch``, ``prompt_len``,
+``gen``): its spans are ``serve.prefill`` and, for each decode step,
+``serve.decode.issue`` (``decode_step`` and the argmax enqueued),
+``serve.decode.wait`` (the host blocked reading the step's token; the
+last step's token is never read, and its wait is the final sync) and
+``serve.decode.log`` (the token's push to the stream); its counts are
+``serve.decode_steps`` and ``serve.decode_tokens_returned`` (a row's
+tokens of decode steps that the call returns: the last step's is not).
+The stats ``prefill_s`` and ``decode_s`` are those spans' host seconds.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \\
         recurrentgemma-9b --smoke --device cpu --batch 4 --prompt-len 32
@@ -26,17 +34,19 @@ card (the default device) drop ``--device cpu``; ``chip_smoke.py``'s
 from __future__ import annotations
 
 import argparse
-import time
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import Clovis, StreamContext, clovis_appender
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as mdl
+
+DECODE_SPANS = ("serve.decode.issue", "serve.decode.wait", "serve.decode.log")
 
 
 class Server:
@@ -73,38 +83,46 @@ class Server:
         vocab) logits of the prefill and of every decode step, on the
         device."""
         b, plen = tokens.shape
-        cache = mdl.init_decode_state(
-            self.cfg, b, self.max_len, device=self.device,
-            dtype=torch.float32 if self.cfg.dtype == "float32"
-            else torch.bfloat16)
-        batch = {"tokens": torch.as_tensor(np.asarray(tokens),
-                                           dtype=torch.long)}
-        for k, v in (extra or {}).items():
-            batch[k] = torch.as_tensor(v).to(self.device)
-        self._sync()
-        t0 = time.time()
-        logits, cache = mdl.prefill(self.params, batch, self.cfg, cache,
-                                    use_kernels=self.use_kernels)
-        self._sync()
-        t_prefill = time.time() - t0
-        kept = [logits] if keep_logits else None
+        with trace.unit("serve.generate", batch=b, prompt_len=plen,
+                        gen=gen) as rec:
+            cache = mdl.init_decode_state(
+                self.cfg, b, self.max_len, device=self.device,
+                dtype=torch.float32 if self.cfg.dtype == "float32"
+                else torch.bfloat16)
+            batch = {"tokens": torch.as_tensor(np.asarray(tokens),
+                                               dtype=torch.long)}
+            for k, v in (extra or {}).items():
+                batch[k] = torch.as_tensor(v).to(self.device)
+            self._sync()
+            with trace.span("serve.prefill"):
+                logits, cache = mdl.prefill(self.params, batch, self.cfg,
+                                            cache,
+                                            use_kernels=self.use_kernels)
+                self._sync()
+            kept = [logits] if keep_logits else None
 
-        out = np.zeros((b, gen), np.int32)
-        tok = logits.argmax(-1)[:, None]
-        t0 = time.time()
-        for i in range(gen):
-            out[:, i] = tok[:, 0].cpu().numpy()
-            if self._stream is not None:
-                self._stream.push(0, "tokens", out[:, i])
-            logits, cache = mdl.decode_step(self.params, tok, plen + i,
-                                            self.cfg, cache)
-            if keep_logits:
-                kept.append(logits)
+            out = np.zeros((b, gen), np.int32)
             tok = logits.argmax(-1)[:, None]
-        self._sync()
-        t_decode = time.time() - t0
-        self.clovis.addb.record("serve", "generate", "-",
-                                b * gen, t_prefill + t_decode)
+            for i in range(gen):
+                # the token of step i - 1 (-1: the prefill's)
+                with trace.span("serve.decode.wait", step=i - 1):
+                    out[:, i] = tok[:, 0].cpu().numpy()
+                if i:
+                    trace.count("serve.decode_tokens_returned")
+                if self._stream is not None:
+                    with trace.span("serve.decode.log", step=i - 1):
+                        self._stream.push(0, "tokens", out[:, i])
+                with trace.span("serve.decode.issue", step=i):
+                    logits, cache = mdl.decode_step(self.params, tok,
+                                                    plen + i, self.cfg, cache)
+                    if keep_logits:
+                        kept.append(logits)
+                    tok = logits.argmax(-1)[:, None]
+                trace.count("serve.decode_steps")
+            with trace.span("serve.decode.wait", step=gen - 1):
+                self._sync()
+        t_prefill = rec.seconds["serve.prefill"]
+        t_decode = sum(rec.seconds.get(n, 0.0) for n in DECODE_SPANS)
         stats = {"prefill_s": t_prefill, "decode_s": t_decode,
                  "tok_per_s": b * gen / max(t_decode, 1e-9)}
         if keep_logits:

@@ -20,6 +20,7 @@ from typing import Dict
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import model as mdl
 from repro_torch.models.common import on_replicas
@@ -43,12 +44,15 @@ def make_grad_fn(cfg: ModelConfig, run: RunConfig):
         flat = leaves(params)
         for p in flat:
             p.requires_grad_(True)
-        loss, metrics = mdl.loss_fn(params, batch, cfg, remat=run.remat,
-                                    use_kernels=True)
+        with trace.span("train.forward"):
+            loss, metrics = mdl.loss_fn(params, batch, cfg, remat=run.remat,
+                                        use_kernels=True)
         # deepseek's router bias only selects experts: no gradient reaches
-        # it, and its zeros are the reference's
-        grads = torch.autograd.grad(loss, flat, allow_unused=True,
-                                    materialize_grads=True)
+        # it, and its zeros are the reference's.  Autograd's device thread
+        # puts the kernels' recompute (grad.recompute) under this span
+        with trace.span("train.backward", device=True, lend=True):
+            grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                        materialize_grads=True)
         grads = [_placed_like(g, p) for g, p in zip(grads, flat)]
         return unflatten(params, grads), {k: v.detach()
                                           for k, v in metrics.items()}

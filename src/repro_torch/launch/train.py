@@ -43,6 +43,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch import trace
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.manager import gather_state
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
@@ -185,13 +186,17 @@ class Trainer:
     def step(self, params, opt_state: AdamWState, batch: Optional[Dict]):
         """One train step on a host batch (numpy or tensors; on a mesh
         only rank 0's is read) -> (params, opt_state, metrics), the
-        metrics whole on every rank."""
-        batch = self._batch(batch)
-        with axis_rules(self.rules), implicit_replication():
-            params, opt_state, metrics = self.train_step(params, opt_state,
-                                                         batch)
-        metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
-                   for k, v in metrics.items()}
+        metrics whole on every rank.  A ``train.step`` unit of
+        ``repro_torch.trace``; ``train.batch`` spans the copy to the
+        device."""
+        with trace.unit("train.step"):
+            with trace.span("train.batch"):
+                batch = self._batch(batch)
+            with axis_rules(self.rules), implicit_replication():
+                params, opt_state, metrics = self.train_step(
+                    params, opt_state, batch)
+            metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
         return params, opt_state, metrics
 
     def save(self, step: int, params, opt_state, *, block: bool):

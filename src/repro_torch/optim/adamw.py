@@ -18,6 +18,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import RunConfig
 from repro_torch.tree import leaves, tree_map
 
@@ -84,14 +85,21 @@ def _groups(tensors):
     return out + [cur] if cur else out
 
 
-@torch.no_grad()
 def adamw_update(params, grads, state: AdamWState, run: RunConfig
                  ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step, in place; -> (params, state, {"grad_norm", "lr"}).
     The leaves go through the ``_foreach`` ops in groups
     (``GROUP_BYTES``), so the temporaries never hold a second copy of
     every gradient (a 2.5 B-parameter model's 10 GB); each element's
-    arithmetic is that of one group of all leaves."""
+    arithmetic is that of one group of all leaves.  A ``train.optimizer``
+    span of ``repro_torch.trace``, and inside it ``train.optimizer.read``,
+    the host's read of three scalars."""
+    with trace.span("train.optimizer"):
+        return _update(params, grads, state, run)
+
+
+@torch.no_grad()
+def _update(params, grads, state: AdamWState, run: RunConfig):
     gnorm = global_norm(grads)
     scale = torch.clamp(run.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)                 # clip_by_global_norm's
@@ -99,9 +107,10 @@ def adamw_update(params, grads, state: AdamWState, run: RunConfig
     lr = lr_schedule(step, run)
     b1, b2, eps = run.beta1, run.beta2, 1e-8
     # one read of the three f32 scalars: the foreach ops take numbers
-    bc1 = float(1.0 - b1 ** step.float())
-    bc2 = float(1.0 - b2 ** step.float())
-    lr_f = float(lr)
+    with trace.span("train.optimizer.read"):
+        bc1 = float(1.0 - b1 ** step.float())
+        bc2 = float(1.0 - b2 ** step.float())
+        lr_f = float(lr)
 
     p_all, g_all = leaves(params), leaves(grads)
     m_all, v_all = leaves(state.m), leaves(state.v)

@@ -5,6 +5,8 @@ port's server.  Greedy tokens must be equal; logits within ``LOGIT_TOL``
 (atol 2e-4, rtol 1e-4: f32 matmuls summed in another order) of the
 reference's prefill and decode fed the same tokens.  The token log must
 read back from the port's Clovis."""
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +16,7 @@ import torch
 from repro.configs import get_smoke_config as jget_smoke
 from repro.launch.serve import Server as JServer
 from repro.models import model as jmdl
-from repro_torch import NoCudaDeviceError
+from repro_torch import NoCudaDeviceError, trace
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import FunctionShipper
 from repro_torch.launch import serve
@@ -92,7 +94,8 @@ def test_token_log_reads_back_from_clovis(tmp_path):
     prompts = np.random.default_rng(2).integers(
         0, cfg.vocab_real, (B, PROMPT)).astype(np.int32)
     srv = Server(cfg, tmp_path / "s", device="cpu", max_len=64)
-    seen = len(srv.clovis.addb.records("serve"))    # the ADDB is shared
+    t0 = time.time_ns()               # the unit records are the process's
+    addb = len(srv.clovis.addb.records("serve"))    # and so is the ADDB
     out, _ = srv.generate(prompts, GEN)
     out2, _ = srv.generate(prompts[:, :10], GEN)
     srv.close()
@@ -102,9 +105,12 @@ def test_token_log_reads_back_from_clovis(tmp_path):
     # one row of B tokens per decode step, both calls in order
     np.testing.assert_array_equal(
         log.reshape(2 * GEN, B), np.concatenate([out.T, out2.T]))
-    recs = cl.addb.records("serve")[seen:]
-    assert [r.entity for r in recs] == ["generate", "generate"]
-    assert [r.nbytes for r in recs] == [B * GEN, B * GEN]
+    recs = [u for u in trace.units("serve.generate") if u.start_ns >= t0]
+    assert [(r.attrs["batch"], r.attrs["prompt_len"], r.attrs["gen"])
+            for r in recs] == [(B, PROMPT, GEN), (B, 10, GEN)]
+    assert [r.attrs["batch"] * r.counts["serve.decode_steps"]
+            for r in recs] == [B * GEN, B * GEN]
+    assert len(cl.addb.records("serve")) == addb
     sh = FunctionShipper(cl)
     try:
         res = sh.ship("histogram", "stream/tokens")
