@@ -9,13 +9,23 @@ offloaded to a StreamContext consumer that appends to the port's Clovis
 ``batch`` tokens per step).  Each ``generate`` call is a ``serve.generate``
 unit of ``repro_torch.trace`` (attributes ``batch``, ``prompt_len``,
 ``gen``): its spans are ``serve.prefill`` and, for each decode step,
-``serve.decode.issue`` (``decode_step`` and the argmax enqueued),
-``serve.decode.wait`` (the host blocked reading the step's token; the
-last step's token is never read, and its wait is the final sync) and
-``serve.decode.log`` (the token's push to the stream); its counts are
-``serve.decode_steps`` and ``serve.decode_tokens_returned`` (a row's
-tokens of decode steps that the call returns: the last step's is not).
+``serve.decode.issue`` (``decode_step`` and the argmax enqueued, or
+their graph replayed), ``serve.decode.wait`` (the host blocked reading
+the step's token; the last step's token is never read, and its wait is
+the final sync) and ``serve.decode.log`` (the token's push to the
+stream); its counts are ``serve.decode_steps`` and
+``serve.decode_tokens_returned`` (a row's tokens of decode steps that
+the call returns: the last step's is not).
 The stats ``prefill_s`` and ``decode_s`` are those spans' host seconds.
+
+On the card, a stack of SSD blocks alone (mamba2: its decode reads no
+position and holds O(1) state) served with no ``extra`` inputs replays
+each decode step from one CUDA graph (``DecodeGraph``), captured at the
+Server's first call at that batch: issuing a step is then one graph
+launch instead of ~900 eager ops.  The counters
+``serve.decode_graph_captures`` and ``serve.decode_graph_steps`` (a step
+replayed) say so.  Every other stack, and every stack on the CPU, issues
+``decode_step`` op by op.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \\
         recurrentgemma-9b --smoke --device cpu --batch 4 --prompt-len 32
@@ -35,7 +45,7 @@ from __future__ import annotations
 
 import argparse
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,8 +55,68 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import Clovis, StreamContext, clovis_appender
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as mdl
+from repro_torch.models.transformer import SSD, stack_kinds
+from repro_torch.tree import leaves
 
 DECODE_SPANS = ("serve.decode.issue", "serve.decode.wait", "serve.decode.log")
+GRAPH_WARMUP = 3
+
+
+def graphs_decode(cfg, device: torch.device, extra=None) -> bool:
+    """Whether ``Server.generate`` replays its decode steps from a CUDA
+    graph: on a CUDA device, with no ``extra`` inputs, for a stack whose
+    every block is SSD (a decode step that reads no position and holds
+    O(1) state, so one captured step serves every position)."""
+    return (device.type == "cuda" and not extra
+            and all(k == SSD for ks in stack_kinds(cfg).values()
+                    for k in ks))
+
+
+class DecodeGraph:
+    """One ``decode_step`` at batch ``batch`` and its argmax, captured in
+    a ``torch.cuda.CUDAGraph`` over static buffers: the token ``tok``
+    (batch, 1) long, the cache tree ``cache`` (``init_decode_state``'s
+    shapes) and the logits ``logits`` (batch, vocab) f32.  A replay reads
+    ``tok`` and ``cache``, writes the step's state and conv tail back into
+    ``cache`` and its argmax into ``tok``; ``logits`` is overwritten by
+    the next replay."""
+
+    def __init__(self, params, cfg, batch: int, max_len: int,
+                 dtype: torch.dtype, device: torch.device):
+        self.tok = torch.zeros((batch, 1), dtype=torch.long, device=device)
+        self.cache = mdl.init_decode_state(cfg, batch, max_len,
+                                           dtype=dtype, device=device)
+        self._leaves = leaves(self.cache)
+
+        def step():
+            logits, cache = mdl.decode_step(params, self.tok, 0, cfg,
+                                            self.cache)
+            torch._foreach_copy_(self._leaves, leaves(cache))
+            self.tok.copy_(logits.argmax(-1)[:, None])
+            return logits
+
+        # warm-up outside the capture (cuBLAS handles, the allocator) on
+        # the static buffers, which hold nothing yet
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP):
+                step()
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: the token log's consumer thread may call into CUDA
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.logits = step()
+        trace.count("serve.decode_graph_captures")
+
+    def load(self, cache, tok: torch.Tensor):
+        """Start from a prefill's cache tree and its token (b, 1)."""
+        torch._foreach_copy_(self._leaves, leaves(cache))
+        self.tok.copy_(tok)
+
+    def replay(self):
+        self.graph.replay()
+        trace.count("serve.decode_graph_steps")
 
 
 class Server:
@@ -63,6 +133,7 @@ class Server:
         self.clovis = Clovis(root, device=self.device)
         self.params = params if params is not None else mdl.init_params(
             cfg, device=self.device)
+        self._graphs: Dict[Tuple[int, torch.dtype], DecodeGraph] = {}
         self._stream = self._appender = None
         if log_tokens:
             self._appender = clovis_appender(self.clovis,
@@ -83,12 +154,19 @@ class Server:
         vocab) logits of the prefill and of every decode step, on the
         device."""
         b, plen = tokens.shape
+        dtype = (torch.float32 if self.cfg.dtype == "float32"
+                 else torch.bfloat16)
         with trace.unit("serve.generate", batch=b, prompt_len=plen,
                         gen=gen) as rec:
-            cache = mdl.init_decode_state(
-                self.cfg, b, self.max_len, device=self.device,
-                dtype=torch.float32 if self.cfg.dtype == "float32"
-                else torch.bfloat16)
+            graph = None
+            if graphs_decode(self.cfg, self.device, extra):
+                graph = self._graphs.get((b, dtype))
+                if graph is None:
+                    graph = self._graphs[b, dtype] = DecodeGraph(
+                        self.params, self.cfg, b, self.max_len, dtype,
+                        self.device)
+            cache = mdl.init_decode_state(self.cfg, b, self.max_len,
+                                          device=self.device, dtype=dtype)
             batch = {"tokens": torch.as_tensor(np.asarray(tokens),
                                                dtype=torch.long)}
             for k, v in (extra or {}).items():
@@ -113,11 +191,19 @@ class Server:
                     with trace.span("serve.decode.log", step=i - 1):
                         self._stream.push(0, "tokens", out[:, i])
                 with trace.span("serve.decode.issue", step=i):
-                    logits, cache = mdl.decode_step(self.params, tok,
-                                                    plen + i, self.cfg, cache)
-                    if keep_logits:
-                        kept.append(logits)
-                    tok = logits.argmax(-1)[:, None]
+                    if graph is not None:
+                        if i == 0:
+                            graph.load(cache, tok)
+                            tok, cache = graph.tok, None
+                        graph.replay()
+                        if keep_logits:
+                            kept.append(graph.logits.clone())
+                    else:
+                        logits, cache = mdl.decode_step(
+                            self.params, tok, plen + i, self.cfg, cache)
+                        if keep_logits:
+                            kept.append(logits)
+                        tok = logits.argmax(-1)[:, None]
                 trace.count("serve.decode_steps")
             with trace.span("serve.decode.wait", step=gen - 1):
                 self._sync()

@@ -702,6 +702,76 @@ def test_mamba2_server_kernel_path_matches_plain_path_on_cuda(dev, tmp_path):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
 
 
+def _eager_generate(mdl, params, cfg, dev, prompts, gen, max_len):
+    """The Server's call written out eagerly: prefill, then ``gen`` steps
+    of ``decode_step`` and argmax -> (tokens (b, gen), logits)."""
+    dtype = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    cache = mdl.init_decode_state(cfg, prompts.shape[0], max_len,
+                                  dtype=dtype, device=dev)
+    logits, cache = mdl.prefill(params, {"tokens": prompts}, cfg, cache)
+    kept, toks = [logits], []
+    for i in range(gen):
+        toks.append(logits.argmax(-1)[:, None])
+        logits, cache = mdl.decode_step(params, toks[-1],
+                                        prompts.shape[1] + i, cfg, cache)
+        kept.append(logits)
+    return torch.cat(toks, 1).cpu().numpy(), kept
+
+
+@pytest.mark.parametrize("size,batch", [
+    ("smoke", 1), ("smoke", 2), ("smoke-bf16", 2), ("full", 1),
+    ("full", 2)])
+def test_mamba2_decode_graph_matches_eager_decode(dev, tmp_path, size,
+                                                  batch):
+    """A mamba2 Server on the card replays its decode steps from one CUDA
+    graph, captured once per (batch, dtype) over three calls of other
+    prompt lengths, and serves what an eager prefill + ``decode_step``
+    loop serves on the same weights: equal tokens, logits within 1e-6 of
+    the row's largest |logit| (the same kernels on the same shapes: equal
+    bits expected), every kept logits tensor its own storage, and the
+    token log equal to the returned tokens."""
+    from repro_torch import trace
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import model as mdl
+    if size == "full":
+        cfg = get_config("mamba2-130m").scaled(dtype="float32")
+    else:
+        cfg = get_smoke_config("mamba2-130m").scaled(
+            d_model=128, ssm_state=32, ssm_headdim=32, ssm_chunk=64,
+            dtype="bfloat16" if size == "smoke-bf16" else "float32")
+    gen, lens = 6, (150, 37, 300)
+    srv = Server(cfg, tmp_path / "s", device=dev, max_len=max(lens) + gen)
+    before = trace.counters()
+    rng = np.random.default_rng(batch)
+    served = []
+    for n in lens:
+        prompts = rng.integers(0, cfg.vocab_real, (batch, n)).astype(
+            np.int32)
+        out, st = srv.generate(prompts, gen, keep_logits=True)
+        want_out, want = _eager_generate(mdl, srv.params, cfg, dev, prompts,
+                                         gen, max(lens) + gen)
+        np.testing.assert_array_equal(out, want_out)
+        got = st["logits"]
+        assert len(got) == gen + 1
+        assert len({t.untyped_storage().data_ptr() for t in got}) == gen + 1
+        for a, b in zip(got, want):
+            row = b.abs().amax(-1, keepdim=True)
+            assert bool(((a - b).abs() <= 1e-6 * row).all())
+        served.append(out)
+    srv.close()
+    after = trace.counters()
+    counted = {k: after.get(k, 0) - before.get(k, 0) for k in (
+        "serve.decode_graph_captures", "serve.decode_graph_steps",
+        "serve.decode_steps")}
+    assert counted == {"serve.decode_graph_captures": 1,
+                       "serve.decode_graph_steps": len(lens) * gen,
+                       "serve.decode_steps": len(lens) * gen}
+    log = np.frombuffer(srv.clovis.get("stream/tokens"), np.int32)
+    np.testing.assert_array_equal(
+        log, np.concatenate([o.T for o in served]).reshape(-1))
+
+
 # ---------------------------------------------------------------------------
 # gradients through the model kernels: the forward launches the kernel,
 # the backward recomputes the plain version (kernels.grad); each input's

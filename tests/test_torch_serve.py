@@ -17,10 +17,11 @@ from repro.configs import get_smoke_config as jget_smoke
 from repro.launch.serve import Server as JServer
 from repro.models import model as jmdl
 from repro_torch import NoCudaDeviceError, trace
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import FunctionShipper
 from repro_torch.launch import serve
 from repro_torch.launch.serve import Server
+from repro_torch.models import model as mdl
 from repro_torch.models.convert import params_from_jax
 
 ARCH = "recurrentgemma-9b"
@@ -140,3 +141,44 @@ def test_main_serves_mamba2_on_the_cpu(tmp_path, capsys):
                 "2", "--prompt-len", "19", "--gen", "3",
                 "--root", str(tmp_path / "m")])
     assert "generated (2, 3) tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_decode_graph_gate(arch):
+    """The graph serves SSD-only stacks on a CUDA device: mamba2, and no
+    stack with attention, RG-LRU, MoE or an encoder; never on the CPU,
+    nor with ``extra`` inputs."""
+    cfg = get_config(arch)
+    cuda = torch.device("cuda", 0)
+    assert serve.graphs_decode(cfg, cuda) is (arch == SSM_ARCH)
+    assert serve.graphs_decode(cfg, cuda, {}) is (arch == SSM_ARCH)
+    assert not serve.graphs_decode(cfg, cuda, {"frames": np.zeros(1)})
+    assert not serve.graphs_decode(cfg, torch.device("cpu"))
+
+
+def test_cpu_server_serves_eagerly(tmp_path):
+    """On the CPU a mamba2 Server replays no graph: it serves the tokens
+    and the logits, bit for bit, of an eager prefill + decode_step loop
+    on the same weights."""
+    cfg = get_smoke_config(SSM_ARCH).scaled(dtype="float32")
+    prompts = np.random.default_rng(4).integers(
+        0, cfg.vocab_real, (B, PROMPT)).astype(np.int32)
+    srv = Server(cfg, tmp_path / "s", device="cpu", max_len=PROMPT + GEN)
+    out, stats = srv.generate(prompts, GEN, keep_logits=True)
+    srv.close()
+    rec = trace.units("serve.generate")[-1]
+    assert rec.counts.get("serve.decode_graph_steps", 0) == 0
+    assert rec.counts.get("serve.decode_graph_captures", 0) == 0
+    assert rec.counts["serve.decode_steps"] == GEN
+    cache = mdl.init_decode_state(cfg, B, PROMPT + GEN, dtype=torch.float32,
+                                  device="cpu")
+    logits, cache = mdl.prefill(srv.params, {"tokens": prompts}, cfg, cache)
+    want, toks = [logits], []
+    for i in range(GEN):
+        toks.append(logits.argmax(-1)[:, None])
+        logits, cache = mdl.decode_step(srv.params, toks[-1], PROMPT + i,
+                                        cfg, cache)
+        want.append(logits)
+    np.testing.assert_array_equal(out, torch.cat(toks, 1).numpy())
+    for got, w in zip(stats["logits"], want):
+        assert torch.equal(got, w)
