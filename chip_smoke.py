@@ -82,7 +82,9 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
    same way; its prefill must launch B5 24 times (MHA, hd 128) and
    B6/B7 never; the prefill is split by CUDA events into B5, the
    router, dispatch, expert products, combine and shared experts, and
-   the two paths' routing choices are compared.  ``[serve-mla]``:
+   the two paths' routing choices in the prefill are compared; its
+   decode is replayed from a CUDA graph, and its greedy tokens must equal
+   an eager prefill + ``decode_step`` loop's (as ``[serve-ssm]``'s).  ``[serve-mla]``:
    deepseek-v3-671b at full width, its depth cut to its 3 dense layers
    and 1 MoE layer (256 experts, top 8, sigmoid router with its bias)
    and no MTP (15,111,101,696 f32 parameters) serves 2 prompts of 1,024
@@ -2266,7 +2268,7 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
     the model runs."""
     import numpy as np
     from repro_torch.core import FunctionShipper
-    from repro_torch.launch.serve import Server
+    from repro_torch.launch.serve import Server, graphs_decode
     from repro_torch.models import model as mdl
     from repro_torch.models.transformer import reads_memory, stack_kinds
     from repro_torch.tree import leaves
@@ -2333,6 +2335,10 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
         launches = {k: ext.LAUNCHES[k] for k in MODEL_KERNELS}  # ends here
         peak = torch.cuda.max_memory_allocated(dev)
         srv.close()
+        graphed = graphs_decode(cfg, dev, extra)
+        if graphed:     # the capture's routing calls are no step's
+            routes[0][:] = [r for r in routes[0]
+                            if tuple(r[0].shape[:2]) == (batch, prompt)]
         if launches != want_launches:
             fail(f"[{tag}] one prefill launched {launches}, expected "
                  f"{want_launches}")
@@ -2374,6 +2380,9 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
         log(f"[{tag}] token log stream/tokens in container servelog: "
             f"{toks.nbytes} B equal to the generated tokens; in-storage "
             f"histogram (FunctionShipper) {np.asarray(hist.value)[:8]}...")
+        if graphed:
+            graph_check(torch, srv.params, cfg, dev, tag, prompts, out,
+                        max_len)
         if cfg.use_mla:
             del logits
             tok = torch.from_numpy(out[:, -1:]).to(dev)
@@ -2403,6 +2412,33 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
         return {k: launches[k] for k in used}
     finally:
         remove_store(root)
+
+
+def graph_check(torch, params, cfg, dev, tag, prompts, out, max_len):
+    """A Server that replayed its decode steps from a CUDA graph must have
+    served the greedy tokens of the eager loop that the graph replaced:
+    prefill through the kernels, then ``decode_step`` and argmax op by
+    op, on the same weights."""
+    import numpy as np
+    from repro_torch.models import model as mdl
+    batch, prompt = prompts.shape
+    cache = mdl.init_decode_state(
+        cfg, batch, max_len, device=dev,
+        dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+    logits, cache = mdl.prefill(params, {"tokens": prompts}, cfg, cache)
+    toks = []
+    for i in range(out.shape[1]):
+        toks.append(logits.argmax(-1)[:, None])
+        logits, cache = mdl.decode_step(params, toks[-1], prompt + i, cfg,
+                                        cache)
+    eager = torch.cat(toks, 1).cpu().numpy()
+    del cache, logits
+    if not np.array_equal(eager, out):
+        fail(f"[{tag}] the graphed decode served other greedy tokens than "
+             f"the eager loop: {int((eager == out).sum())} of {out.size} "
+             "agree")
+    log(f"[{tag}] decode replayed from a CUDA graph: its {out.size} greedy "
+        "tokens equal an eager prefill + decode_step loop's")
 
 
 def rms_rel(a, b) -> float:
@@ -2466,10 +2502,14 @@ def plain_path(torch, params, cfg, dev, tag, prompts, out, logits, routes,
     if cfg.is_moe:
         n_pre = cfg.n_layers - cfg.n_dense_layers      # one prefill
         pre = route_flips(routes[0][:n_pre], routes[1][:n_pre])
-        dec = route_flips(routes[0][n_pre:], routes[1][n_pre:])
+        if len(routes[0]) > n_pre:
+            dec = route_flips(routes[0][n_pre:], routes[1][n_pre:])
+            dec = f"{dec[0]} of {dec[1]} in decode"
+        else:               # a graph replays decode past ``moe._route``
+            dec = "decode replayed from a CUDA graph (not recorded)"
         log(f"[{tag}] routing, kernel path against plain path: expert "
             f"choice or drop differs for {pre[0]} of {pre[1]} "
-            f"token-layers in the prefill, {dec[0]} of {dec[1]} in decode")
+            f"token-layers in the prefill; {dec}")
     if bf16:
         f32 = run(cfg.scaled(dtype="float32"), [])[0]
         dist = {name: [rms_rel(a[i], b[i]) for i in range(gen + 1)]

@@ -61,6 +61,7 @@ class ModelConfig:
     router_type: str = "softmax"     # softmax | sigmoid(deepseek)
     router_aux_free_bias: bool = False  # deepseek aux-loss-free balancing bias
     moe_capacity_factor: float = 1.25
+    norm_topk_prob: bool = True      # renormalise the top-k gates to sum 1
     router_aux_coef: float = 0.001
 
     # --- MLA (deepseek) ---------------------------------------------------------

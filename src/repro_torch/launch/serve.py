@@ -18,14 +18,21 @@ stream); its counts are ``serve.decode_steps`` and
 the call returns: the last step's is not).
 The stats ``prefill_s`` and ``decode_s`` are those spans' host seconds.
 
-On the card, a stack of SSD blocks alone (mamba2: its decode reads no
-position and holds O(1) state) served with no ``extra`` inputs replays
-each decode step from one CUDA graph (``DecodeGraph``), captured at the
-Server's first call at that batch: issuing a step is then one graph
-launch instead of ~900 eager ops.  The counters
-``serve.decode_graph_captures`` and ``serve.decode_graph_steps`` (a step
-replayed) say so.  Every other stack, and every stack on the CPU, issues
-``decode_step`` op by op.
+On the card, a decoder stack of global or local attention and SSD
+blocks, with dense or MoE feed-forwards (mamba2, qwen2-moe, the dense
+transformers), served with no ``extra`` inputs replays each decode step
+from one CUDA graph (``DecodeGraph``), captured at the Server's first
+call at that batch: issuing a step is then one graph launch instead of
+hundreds of eager ops.  The graph keeps the step's position on the
+device and advances it itself, and the prefill fills the graph's own
+attention caches in place.  The counters ``serve.decode_graph_captures``
+and ``serve.decode_graph_steps`` (a step replayed) say so.  MLA,
+RG-LRU, cross-attention and encoder-decoder stacks, and every stack on
+the CPU, issue ``decode_step`` op by op.
+
+Counts the model makes on the device (``trace.count_device``: the MoE's
+routed and dropped assignments) are read at the syncs a call makes
+anyway, the prefill's end and the call's last, into its unit.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \\
         recurrentgemma-9b --smoke --device cpu --batch 4 --prompt-len 32
@@ -44,6 +51,7 @@ card (the default device) drop ``--device cpu``; ``chip_smoke.py``'s
 from __future__ import annotations
 
 import argparse
+import gc
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -55,45 +63,61 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import Clovis, StreamContext, clovis_appender
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as mdl
-from repro_torch.models.transformer import SSD, stack_kinds
+from repro_torch.models.transformer import (GLOBAL_ATTN, LOCAL_ATTN, SSD,
+                                            init_block_cache, stack_kinds)
 from repro_torch.tree import leaves
 
 DECODE_SPANS = ("serve.decode.issue", "serve.decode.wait", "serve.decode.log")
 GRAPH_WARMUP = 3
+# blocks whose decode step a graph replays: attention reads its position
+# from the device, SSD reads none
+POSITION_KINDS = (GLOBAL_ATTN, LOCAL_ATTN)
+GRAPH_KINDS = POSITION_KINDS + (SSD,)
 
 
 def graphs_decode(cfg, device: torch.device, extra=None) -> bool:
     """Whether ``Server.generate`` replays its decode steps from a CUDA
-    graph: on a CUDA device, with no ``extra`` inputs, for a stack whose
-    every block is SSD (a decode step that reads no position and holds
-    O(1) state, so one captured step serves every position)."""
-    return (device.type == "cuda" and not extra
-            and all(k == SSD for ks in stack_kinds(cfg).values()
-                    for k in ks))
+    graph: on a CUDA device, with no ``extra`` inputs, for a decoder
+    stack whose every block is global or local attention (not MLA) or
+    SSD, dense or MoE, and not an encoder-decoder (one captured step
+    serves every position: attention reads it on the device, SSD holds
+    O(1) state and reads none)."""
+    kinds = {k for ks in stack_kinds(cfg).values() for k in ks}
+    return (device.type == "cuda" and not extra and not cfg.use_mla
+            and not cfg.is_encoder_decoder and kinds <= set(GRAPH_KINDS))
+
+
+def _copy_into(dst, src):
+    """Copy each leaf of ``src`` into ``dst``'s, past those that are the
+    same tensor (an attention cache written in place)."""
+    pairs = [(a, b) for a, b in zip(dst, src) if a is not b]
+    if pairs:
+        torch._foreach_copy_([a for a, _ in pairs], [b for _, b in pairs])
 
 
 class DecodeGraph:
     """One ``decode_step`` at batch ``batch`` and its argmax, captured in
     a ``torch.cuda.CUDAGraph`` over static buffers: the token ``tok``
     (batch, 1) long, the cache tree ``cache`` (``init_decode_state``'s
-    shapes) and the logits ``logits`` (batch, vocab) f32.  A replay reads
-    ``tok`` and ``cache``, writes the step's state and conv tail back into
-    ``cache`` and its argmax into ``tok``; ``logits`` is overwritten by
-    the next replay."""
+    shapes), the logits ``logits`` (batch, vocab) f32 and, for a stack
+    with attention, the position ``pos`` (0-d long).  A replay reads
+    ``tok``, ``pos`` and ``cache``, writes the step's K/V slot in place
+    and its SSD state and conv tail back into ``cache``, its argmax into
+    ``tok``, and adds one to ``pos``; ``logits`` is overwritten by the
+    next replay."""
 
     def __init__(self, params, cfg, batch: int, max_len: int,
                  dtype: torch.dtype, device: torch.device):
+        self.params, self.cfg, self.batch = params, cfg, batch
+        self.max_len, self.dtype, self.device = max_len, dtype, device
         self.tok = torch.zeros((batch, 1), dtype=torch.long, device=device)
         self.cache = mdl.init_decode_state(cfg, batch, max_len,
                                            dtype=dtype, device=device)
         self._leaves = leaves(self.cache)
-
-        def step():
-            logits, cache = mdl.decode_step(params, self.tok, 0, cfg,
-                                            self.cache)
-            torch._foreach_copy_(self._leaves, leaves(cache))
-            self.tok.copy_(logits.argmax(-1)[:, None])
-            return logits
+        self.pos = None
+        if any(k in POSITION_KINDS for ks in stack_kinds(cfg).values()
+               for k in ks):
+            self.pos = torch.zeros((), dtype=torch.long, device=device)
 
         # warm-up outside the capture (cuBLAS handles, the allocator) on
         # the static buffers, which hold nothing yet
@@ -101,18 +125,53 @@ class DecodeGraph:
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             for _ in range(GRAPH_WARMUP):
-                step()
+                self._step()
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        # thread_local: the token log's consumer thread may call into CUDA
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.logits = step()
+        # no collection inside the capture: an earlier graph or tensor
+        # freed there would end it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # thread_local: the token log's consumer thread may call into
+            # CUDA
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.logits = self._step()
+        finally:
+            if collecting:
+                gc.enable()
         trace.count("serve.decode_graph_captures")
 
-    def load(self, cache, tok: torch.Tensor):
-        """Start from a prefill's cache tree and its token (b, 1)."""
-        torch._foreach_copy_(self._leaves, leaves(cache))
+    def _step(self) -> torch.Tensor:
+        """The captured step: ``decode_step`` on the static buffers, the
+        state written back, the argmax into ``tok``, ``pos`` advanced."""
+        logits, cache = mdl.decode_step(
+            self.params, self.tok, 0 if self.pos is None else self.pos,
+            self.cfg, self.cache)
+        _copy_into(self._leaves, leaves(cache))
+        self.tok.copy_(logits.argmax(-1)[:, None])
+        if self.pos is not None:
+            self.pos.add_(1)
+        return logits
+
+    def prefill_cache(self) -> dict:
+        """The cache tree a prefill starts from: the graph's own attention
+        caches, which the prefill fills in place, and fresh states for the
+        other blocks (SSD starts from the state it is given)."""
+        return {part: [c if kind in POSITION_KINDS else init_block_cache(
+                    self.cfg, kind, self.batch, self.max_len, self.dtype,
+                    self.device)
+                       for kind, c in zip(kinds, self.cache[part])]
+                for part, kinds in stack_kinds(self.cfg).items()}
+
+    def load(self, cache, tok: torch.Tensor, position: int):
+        """Start from a prefill's cache tree, its token (b, 1) and that
+        token's position."""
+        _copy_into(self._leaves, leaves(cache))
         self.tok.copy_(tok)
+        if self.pos is not None:
+            self.pos.fill_(position)
 
     def replay(self):
         self.graph.replay()
@@ -145,6 +204,12 @@ class Server:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _sync_counts(self):
+        """Synchronize, reading the device's counts on the way."""
+        trace.stage_device_counts(self.device)
+        self._sync()
+        trace.settle_device_counts(self.device)
+
     def generate(self, tokens: np.ndarray, gen: int, extra=None, *,
                  keep_logits: bool = False):
         """tokens: (batch, prompt_len) ints -> ((batch, gen) int32, stats).
@@ -165,8 +230,11 @@ class Server:
                     graph = self._graphs[b, dtype] = DecodeGraph(
                         self.params, self.cfg, b, self.max_len, dtype,
                         self.device)
-            cache = mdl.init_decode_state(self.cfg, b, self.max_len,
-                                          device=self.device, dtype=dtype)
+                cache = graph.prefill_cache()
+            else:
+                cache = mdl.init_decode_state(self.cfg, b, self.max_len,
+                                              device=self.device, dtype=dtype)
+            trace.drop_device_counts(self.device)
             batch = {"tokens": torch.as_tensor(np.asarray(tokens),
                                                dtype=torch.long)}
             for k, v in (extra or {}).items():
@@ -176,7 +244,7 @@ class Server:
                 logits, cache = mdl.prefill(self.params, batch, self.cfg,
                                             cache,
                                             use_kernels=self.use_kernels)
-                self._sync()
+                self._sync_counts()
             kept = [logits] if keep_logits else None
 
             out = np.zeros((b, gen), np.int32)
@@ -193,7 +261,7 @@ class Server:
                 with trace.span("serve.decode.issue", step=i):
                     if graph is not None:
                         if i == 0:
-                            graph.load(cache, tok)
+                            graph.load(cache, tok, plen)
                             tok, cache = graph.tok, None
                         graph.replay()
                         if keep_logits:
@@ -206,7 +274,7 @@ class Server:
                         tok = logits.argmax(-1)[:, None]
                 trace.count("serve.decode_steps")
             with trace.span("serve.decode.wait", step=gen - 1):
-                self._sync()
+                self._sync_counts()
         t_prefill = rec.seconds["serve.prefill"]
         t_decode = sum(rec.seconds.get(n, 0.0) for n in DECODE_SPANS)
         stats = {"prefill_s": t_prefill, "decode_s": t_decode,

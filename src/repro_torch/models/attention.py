@@ -16,13 +16,17 @@ Three execution paths with identical semantics, as in the reference:
 Caches are fixed-size ring buffers: ``k/v`` of length ``W`` plus a ``pos``
 vector holding the absolute position stored in each slot (-1 = empty).
 For global attention W = max_len; for sliding-window layers W = window.
-Unlike the reference, decode writes its slot in place (the port's caches
-are not shared), which saves a copy of the cache per token.
+Unlike the reference, prefill fills the cache it is given and decode
+writes its slot, both in place (the port's caches are not shared), which
+saves a copy of the cache per request and per token.  Decode reads its
+position as an int or as a 0-d integer tensor on the device: the slot,
+RoPE and the mask are then computed there, so that one decode step
+captured in a CUDA graph serves every position.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -328,7 +332,8 @@ def prefill_attention(p: Dict, x: torch.Tensor, positions: torch.Tensor,
                       cfg: ModelConfig, cache: Dict, *, window: int = 0,
                       use_kernels: bool = True
                       ) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence attention that also fills the ring cache."""
+    """Full-sequence attention that also fills the ring cache, in place
+    (every slot the prompt leaves empty is marked empty)."""
     s = x.shape[1]
     q, k, v = _project_qkv(p, x, cfg)
     if cfg.pos_embedding == "rope":
@@ -342,48 +347,47 @@ def prefill_attention(p: Dict, x: torch.Tensor, positions: torch.Tensor,
         # keep the last w entries, laid out by the ring invariant
         # slot(p) = p % w so later decode writes evict the oldest entry
         shift = (s - w) % w
-        cache = {
-            "k": torch.roll(k[:, s - w:], shift, 1).to(cache["k"].dtype),
-            "v": torch.roll(v[:, s - w:], shift, 1).to(cache["v"].dtype),
-            "pos": torch.roll(pos[s - w:], shift, 0).to(torch.int32),
-        }
+        for name, val in (("k", k[:, s - w:]), ("v", v[:, s - w:]),
+                          ("pos", pos[s - w:])):
+            cache[name].copy_(torch.roll(val, shift,
+                                         0 if name == "pos" else 1))
     else:
-        cache = dict(cache)
-        for name, val in (("k", k), ("v", v)):
-            buf = cache[name].clone()
-            buf[:, :s] = val.to(buf.dtype)
-            cache[name] = buf
-        buf = cache["pos"].clone()
-        buf[:s] = pos.to(torch.int32)
-        cache["pos"] = buf
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        cache["pos"][:s] = pos.to(torch.int32)
+        cache["pos"][s:] = -1          # what an earlier request left
     return out, cache
 
 
-def decode_attention(p: Dict, x: torch.Tensor, position: int,
-                     cfg: ModelConfig, cache: Dict, *, window: int = 0
+def decode_attention(p: Dict, x: torch.Tensor,
+                     position: Union[int, torch.Tensor], cfg: ModelConfig,
+                     cache: Dict, *, window: int = 0
                      ) -> Tuple[torch.Tensor, Dict]:
     """Single-token decode step against the ring cache (written in place).
 
-    x: (b, 1, d); position: int (same step for the whole batch — the
-    serving model runs synchronous batched decode).
+    x: (b, 1, d); position: an int or a 0-d integer tensor on x's device
+    (same step for the whole batch — the serving model runs synchronous
+    batched decode).
     """
     q, k, v = _project_qkv(p, x, cfg)
+    if torch.is_tensor(position):
+        pos = position.reshape(()).to(torch.int32)
+    else:
+        pos = torch.full((), position, dtype=torch.int32, device=x.device)
     if cfg.pos_embedding == "rope":
-        posb = torch.full((1, 1), position, dtype=torch.int32,
-                          device=x.device)
-        q = apply_rope(q, posb, cfg.rope_theta, cfg.rope_fraction)
-        k = apply_rope(k, posb, cfg.rope_theta, cfg.rope_fraction)
+        q = apply_rope(q, pos.view(1, 1), cfg.rope_theta, cfg.rope_fraction)
+        k = apply_rope(k, pos.view(1, 1), cfg.rope_theta, cfg.rope_fraction)
 
     w = cache["k"].shape[1]
-    slot = position % w
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["pos"][slot] = position
+    slot = (pos % w).view(1).long()
+    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    cache["pos"].index_copy_(0, slot, pos.view(1))
     pos_cache = cache["pos"]
 
-    valid = (pos_cache >= 0) & (pos_cache <= position)
+    valid = (pos_cache >= 0) & (pos_cache <= pos)
     if window > 0:
-        valid &= pos_cache > position - window
+        valid &= pos_cache > pos - window
     out = attend_dense(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                        valid[None, :], cfg)
     return _out_proj(p, out, x), cache

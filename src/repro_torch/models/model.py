@@ -32,7 +32,7 @@ encoder there as dead code; ROADMAP C20).  ``_encode`` runs it.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -136,8 +136,9 @@ def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
            cdt: torch.dtype) -> torch.Tensor:
     x = params["embed"][tokens.long()].to(cdt)
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt,
-                             device=x.device)
+        # a fill on the device (no copy from the host: capturable)
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=cdt,
+                           device=x.device)
     return common.shard_batch_seq(x)
 
 
@@ -327,13 +328,18 @@ def prefill(params, batch: Dict, cfg: ModelConfig, cache: Dict, *,
     return _logits(params, x[:, -1:], cfg)[:, 0], cache
 
 
-def decode_step(params, token: torch.Tensor, position: int,
-                cfg: ModelConfig, cache: Dict) -> Tuple[torch.Tensor, Dict]:
+def decode_step(params, token: torch.Tensor,
+                position: Union[int, torch.Tensor], cfg: ModelConfig,
+                cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """One token for the whole batch.  token: (b, 1) ints; position: the
-    absolute position of that token.  Plain torch (no kernel), as in the
-    reference."""
+    absolute position of that token, an int or a 0-d integer tensor on
+    the device (attention reads it there, so a CUDA graph of one step
+    serves every position; MLA takes an int).  Plain torch (no kernel),
+    as in the reference."""
     x = _embed(params, token.to(params["embed"].device), cfg,
                compute_dtype(cfg))
+    if not torch.is_tensor(position):
+        position = int(position)
     x, cache = stack_step(params["decoder"], cache, x, cfg, mode="decode",
-                          position=int(position))
+                          position=position)
     return _logits(params, x, cfg)[:, 0], cache

@@ -24,7 +24,18 @@ results the same from run to run:
 
 Routers: softmax (qwen2-moe, with the load-balance aux loss) and sigmoid
 with the aux-loss-free bias (deepseek-v3: the bias changes only which
-experts are selected; the gates are the raw sigmoid scores).
+experts are selected; the gates are the raw sigmoid scores).  The
+selected gates are renormalised to sum to one unless the configuration
+sets ``norm_topk_prob`` false (Qwen1.5-MoE publishes false; the
+reference always renormalises).
+
+Each ``moe_block`` call is a ``moe.block`` span of ``repro_torch.trace``
+and its expert products a ``moe.experts`` span, both timed by CUDA
+events on the card while tracing is on (not inside a CUDA graph's
+capture); it counts ``moe.assignments_routed`` (tokens x k) and
+``moe.assignments_dropped`` (those over an expert's capacity) with
+``trace.count_device``, on the device, so a graphed decode step counts
+too and nothing waits for the count.
 
 On a mesh (activation rules on, ``models.common.axis_rules``) the
 dispatch tensors shard E over the expert axis (expert parallelism) and
@@ -42,6 +53,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import activation, dense_init, on_replicas
@@ -118,6 +130,15 @@ def _normalized_gates(gates: torch.Tensor, mask: torch.Tensor
     return gsel / gsel.sum(-1, keepdim=True).clamp_min(1e-9)
 
 
+def _selected_gates(gates: torch.Tensor, mask: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """The gates of the selected experts (0 elsewhere), renormalised to
+    sum to one where ``cfg.norm_topk_prob``."""
+    if cfg.norm_topk_prob:
+        return _normalized_gates(gates, mask)
+    return torch.where(mask, gates, 0.0)
+
+
 def _shard_dispatch(t: torch.Tensor) -> torch.Tensor:
     """Constrain the (E, G*C, d) dispatch tensors: E -> the expert axis,
     the G-major rows -> the batch axes the expert axis leaves free (the
@@ -153,7 +174,7 @@ def _route(p: Dict, xg: torch.Tensor, cfg: ModelConfig, cap: int):
     top = topk_indices(sel, cfg.top_k)                     # (G, S, k)
     mask = _mask_of(top, sel)
     aux = load_balance_loss(gates, mask, cfg.top_k)
-    gates_n = _normalized_gates(gates, mask)
+    gates_n = _selected_gates(gates, mask, cfg)
 
     prio = torch.where(mask, sel.detach(), float("-inf")).transpose(1, 2)
     tok_idx = topk_indices(prio, cap)                      # (G, E, C)
@@ -222,24 +243,37 @@ def _shared_experts(p: Dict, x: torch.Tensor, cfg: ModelConfig
     return ys
 
 
+def _count_routes(slot: torch.Tensor):
+    """Count the call's assignments and those dropped over capacity
+    (``slot`` -1), on the device; a ``DTensor`` (a mesh) is not counted."""
+    if type(slot) is not torch.Tensor:
+        return
+    trace.count_device("moe.assignments_routed", slot.numel(), slot.device)
+    trace.count_device("moe.assignments_dropped", (slot < 0).sum(),
+                       slot.device)
+
+
 def moe_block(p: Dict, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-gather MoE.  x: (b, s, d) -> (out, aux loss)."""
-    b, s, d = x.shape
-    g, gs = (b, s) if s > 1 else (1, b)
-    xg = x.reshape(g, gs, d)
-    cap = capacity(cfg, gs)
-    names = [k for k in ("router", "router_bias") if k in p]
-    tok_idx, weight, experts, slot, aux = on_replicas(
-        lambda xg, *w: _route(dict(zip(names, w)), xg, cfg, cap),
-        xg, *(p[k] for k in names))
-    yd = _expert_ffn(p, _dispatch(xg, tok_idx), cfg)
-    yd = yd * weight.transpose(0, 1).reshape(
-        yd.shape[0], -1, 1).to(x.dtype)
-    out = _combine(yd, experts, slot, cap).reshape(b, s, d)
-    if cfg.n_shared_experts:
-        out = out + _shared_experts(p, x, cfg)
-    return out, aux
+    with trace.span("moe.block", device=True):
+        b, s, d = x.shape
+        g, gs = (b, s) if s > 1 else (1, b)
+        xg = x.reshape(g, gs, d)
+        cap = capacity(cfg, gs)
+        names = [k for k in ("router", "router_bias") if k in p]
+        tok_idx, weight, experts, slot, aux = on_replicas(
+            lambda xg, *w: _route(dict(zip(names, w)), xg, cfg, cap),
+            xg, *(p[k] for k in names))
+        _count_routes(slot)
+        with trace.span("moe.experts", device=True):
+            yd = _expert_ffn(p, _dispatch(xg, tok_idx), cfg)
+        yd = yd * weight.transpose(0, 1).reshape(
+            yd.shape[0], -1, 1).to(x.dtype)
+        out = _combine(yd, experts, slot, cap).reshape(b, s, d)
+        if cfg.n_shared_experts:
+            out = out + _shared_experts(p, x, cfg)
+        return out, aux
 
 
 # --------------------------------------------------------------------------
@@ -254,7 +288,7 @@ def moe_block_dense(p: Dict, x: torch.Tensor, cfg: ModelConfig
     gates, sel, _ = router_scores(p, xt, cfg)
     mask = _topk_mask(sel, cfg.top_k)
     aux = load_balance_loss(gates, mask, cfg.top_k)
-    gates_n = _normalized_gates(gates, mask)
+    gates_n = _selected_gates(gates, mask, cfg)
 
     act = activation(cfg.act)
     dt = x.dtype

@@ -17,13 +17,21 @@ records here.  Three kinds of record:
   the counts recorded inside it.  Always kept, in a ring of the last
   ``UNIT_RING``.  A unit is itself a span of its kind's name.
 - **Counters** (``count(name, n)``): process-wide integer totals, always
-  kept; a count made inside a unit is added to the unit's counts too.
+  kept; a count made inside a unit is added to the unit's counts too,
+  and, while tracing is on, to the innermost open span's
+  (``SpanRecord.counts``).  ``count_device(name, n, device)`` counts
+  without reading the device: ``n`` joins a running total (on a CUDA
+  device, there: an op a CUDA graph captures and replays), and
+  ``stage_device_counts`` / ``settle_device_counts``, around a
+  synchronize the caller makes anyway, move the totals into the
+  counters; ``drop_device_counts`` resets them uncounted.
 
 Tracing is on while ``REPRO_TORCH_TRACE=1`` was set when this module was
 imported, after ``enable()``, or while a ``torch.profiler`` records.
 Off, a span keeps no record, enters no ``record_function`` and records no
 event: it checks that flag and reads the clock twice for its unit's
-seconds.
+seconds.  A span opened while the current CUDA stream is being captured
+into a graph records no events either.
 
 A span belongs to the innermost span open on its thread.  A span opened
 with ``lend=True`` also lends itself to threads that have no span open,
@@ -44,7 +52,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.autograd.profiler as _profiler
@@ -60,6 +68,9 @@ _lent: List["_Open"] = []
 _spans: "deque[SpanRecord]" = deque(maxlen=SPAN_RING)
 _units: "deque[Unit]" = deque(maxlen=UNIT_RING)
 _counters: Dict[str, int] = {}
+# (name, device) -> (running total on the device, its pinned host copy)
+_device_totals: Dict[Tuple[str, str], Tuple[torch.Tensor, torch.Tensor]] = {}
+_host_totals: Dict[str, int] = {}        # the same, counted off the card
 
 
 def enable(on: bool = True):
@@ -103,10 +114,11 @@ class SpanRecord:
     """One span: ``name``, ``id`` (a unit's span has the unit's),
     ``parent`` (its enclosing span's id, or None), ``unit`` (its unit's
     id, or None), ``start_ns``, ``end_ns``,
-    ``attrs``, ``thread`` (the recording thread's ident)."""
+    ``attrs``, ``thread`` (the recording thread's ident), ``counts`` (the
+    counts made while it was the innermost open span, by name)."""
 
     __slots__ = ("name", "id", "parent", "unit", "start_ns", "end_ns",
-                 "attrs", "thread", "_events")
+                 "attrs", "thread", "counts", "_events")
 
     def __init__(self, name, parent, unit, attrs, id=None):
         self.name, self.parent, self.unit, self.attrs = (name, parent, unit,
@@ -114,6 +126,7 @@ class SpanRecord:
         self.id = next(_ids) if id is None else id
         self.thread = threading.get_ident()
         self.start_ns = self.end_ns = None
+        self.counts: Dict[str, int] = {}
         self._events = None
 
     @property
@@ -156,7 +169,8 @@ class _Open:
             self.rec = SpanRecord(self.name, parent, self.unit_id,
                                   self.attrs,
                                   self.unit_id if self.kind else None)
-            if self.device and torch.cuda.is_initialized():
+            if (self.device and torch.cuda.is_initialized()
+                    and not _capturing()):
                 # made before the range opens: the first event a profiler
                 # sees takes ms to make
                 self.rec._events = (torch.cuda.Event(enable_timing=True),
@@ -202,6 +216,12 @@ class _Open:
         return False
 
 
+def _capturing() -> bool:
+    """Whether the current CUDA stream is being captured into a graph."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
 def _stack() -> List[_Open]:
     try:
         return _local.stack
@@ -242,12 +262,94 @@ def unit(kind: str, **attrs) -> _Open:
 
 def count(name: str, n: int = 1):
     """Add ``n`` to the counter ``name`` and to the current unit's count
-    (or to what the thread carries into its next unit)."""
+    (or to what the thread carries into its next unit), and to the
+    innermost open span's record where one is kept."""
     top = _top(_stack())
     tally = top.tally if top is not None else _pending()
+    rec = top.rec if top is not None else None
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
         tally.counts[name] = tally.counts.get(name, 0) + n
+        if rec is not None:
+            rec.counts[name] = rec.counts.get(name, 0) + n
+
+
+def _device_key(device: torch.device) -> torch.device:
+    if device.index is None:
+        return torch.device(device.type, torch.cuda.current_device())
+    return device
+
+
+def count_device(name: str, n, device: torch.device):
+    """Add ``n`` (an int, or a 0-d integer tensor on ``device``) to a
+    running total of ``name`` that ``settle_device_counts`` moves into
+    the counter, without reading the device.  On a CUDA device the total
+    lives there and the add is an op on the current stream, which a CUDA
+    graph captures and repeats at each replay; a total is made at its
+    first count, which must come before any capture.  Elsewhere the
+    total is the host's (on ``meta`` nothing is counted)."""
+    if device.type == "meta":
+        return
+    if device.type != "cuda":
+        with _lock:
+            _host_totals[name] = _host_totals.get(name, 0) + int(n)
+        return
+    dev = _device_key(device)
+    key = (name, str(dev))
+    with _lock:
+        tot = _device_totals.get(key)
+        if tot is None:
+            if _capturing():
+                raise RuntimeError(f"the device counter {name!r} must count "
+                                   "once before a CUDA graph captures it")
+            tot = _device_totals[key] = (
+                torch.zeros((), dtype=torch.int64, device=dev),
+                torch.zeros((), dtype=torch.int64, pin_memory=True))
+    tot[0].add_(n)
+
+
+def _totals(device: torch.device):
+    dev = str(_device_key(device))
+    with _lock:
+        return [(name, tot) for (name, d), tot in _device_totals.items()
+                if d == dev]
+
+
+def stage_device_counts(device: torch.device):
+    """Before a synchronize of a CUDA ``device``: enqueue the copy of each
+    of its running totals to the host and reset them (no wait)."""
+    if device.type != "cuda":
+        return
+    for _, (acc, host) in _totals(device):
+        host.copy_(acc, non_blocking=True)
+        acc.zero_()
+
+
+def settle_device_counts(device: torch.device):
+    """After that synchronize (at once off the card): count the running
+    totals, in the current unit and span."""
+    if device.type != "cuda":
+        with _lock:
+            got = list(_host_totals.items())
+            _host_totals.clear()
+    else:
+        got = []
+        for name, (_, host) in _totals(device):
+            got.append((name, int(host)))
+            host.zero_()
+    for name, n in got:
+        count(name, n)
+
+
+def drop_device_counts(device: torch.device):
+    """Reset ``device``'s running totals uncounted: what work outside any
+    reader's unit added to them (a graph's warm-up, a bare prefill)."""
+    if device.type != "cuda":
+        with _lock:
+            _host_totals.clear()
+        return
+    for _, (acc, _) in _totals(device):
+        acc.zero_()
 
 
 def spans() -> List[SpanRecord]:

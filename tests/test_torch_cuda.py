@@ -702,13 +702,15 @@ def test_mamba2_server_kernel_path_matches_plain_path_on_cuda(dev, tmp_path):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
 
 
-def _eager_generate(mdl, params, cfg, dev, prompts, gen, max_len):
+def _eager_generate(mdl, params, cfg, dev, prompts, gen, max_len,
+                    use_kernels=True):
     """The Server's call written out eagerly: prefill, then ``gen`` steps
     of ``decode_step`` and argmax -> (tokens (b, gen), logits)."""
     dtype = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
     cache = mdl.init_decode_state(cfg, prompts.shape[0], max_len,
                                   dtype=dtype, device=dev)
-    logits, cache = mdl.prefill(params, {"tokens": prompts}, cfg, cache)
+    logits, cache = mdl.prefill(params, {"tokens": prompts}, cfg, cache,
+                                use_kernels=use_kernels)
     kept, toks = [logits], []
     for i in range(gen):
         toks.append(logits.argmax(-1)[:, None])
@@ -758,6 +760,68 @@ def test_mamba2_decode_graph_matches_eager_decode(dev, tmp_path, size,
         for a, b in zip(got, want):
             row = b.abs().amax(-1, keepdim=True)
             assert bool(((a - b).abs() <= 1e-6 * row).all())
+        served.append(out)
+    srv.close()
+    after = trace.counters()
+    counted = {k: after.get(k, 0) - before.get(k, 0) for k in (
+        "serve.decode_graph_captures", "serve.decode_graph_steps",
+        "serve.decode_steps")}
+    assert counted == {"serve.decode_graph_captures": 1,
+                       "serve.decode_graph_steps": len(lens) * gen,
+                       "serve.decode_steps": len(lens) * gen}
+    log = np.frombuffer(srv.clovis.get("stream/tokens"), np.int32)
+    np.testing.assert_array_equal(
+        log, np.concatenate([o.T for o in served]).reshape(-1))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "gemma2-27b"])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_attention_decode_graph_matches_eager_decode(dev, tmp_path, arch,
+                                                     batch):
+    """A qwen2-moe Server at SMOKE widths on the card (and gemma2's,
+    whose local layers' ring of 8 wraps) replays its decode steps from
+    one CUDA graph with the position on the device, captured once over
+    three calls of other prompt lengths, and serves what an eager
+    prefill + ``decode_step`` loop serves on the same weights: equal
+    greedy tokens, logits within 1e-5 of the row's largest |logit| (the
+    same ops in f32; a GEMM may pick another algorithm under capture),
+    and the same MoE routed and dropped counts.  SMOKE's head_dim 16 is
+    not one B5 takes, so both prefill through the plain path."""
+    from repro_torch import trace
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import model as mdl
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    gen, lens = 6, (150, 37, 300)
+    srv = Server(cfg, tmp_path / "s", device=dev, use_kernels=False,
+                 max_len=max(lens) + gen)
+    before = trace.counters()
+    rng = np.random.default_rng(batch)
+    served = []
+    for n in lens:
+        prompts = rng.integers(0, cfg.vocab_real, (batch, n)).astype(
+            np.int32)
+        out, st = srv.generate(prompts, gen, keep_logits=True)
+        counts = trace.units("serve.generate")[-1].counts
+        trace.drop_device_counts(dev)
+        want_out, want = _eager_generate(mdl, srv.params, cfg, dev, prompts,
+                                         gen, max(lens) + gen,
+                                         use_kernels=False)
+        with trace.unit("test.eager") as eager:
+            trace.stage_device_counts(dev)
+            torch.cuda.synchronize(dev)
+            trace.settle_device_counts(dev)
+        np.testing.assert_array_equal(out, want_out)
+        got = st["logits"]
+        assert len(got) == gen + 1
+        for a, b in zip(got, want):
+            row = b.abs().amax(-1, keepdim=True)
+            assert bool(((a - b).abs() <= 1e-5 * row).all())
+        for name in ("moe.assignments_routed", "moe.assignments_dropped"):
+            assert counts.get(name) == eager.counts.get(name)
+        if cfg.is_moe:
+            assert counts["moe.assignments_routed"] == (
+                cfg.n_layers * batch * (n + gen) * cfg.top_k)
         served.append(out)
     srv.close()
     after = trace.counters()

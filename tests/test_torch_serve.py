@@ -143,15 +143,21 @@ def test_main_serves_mamba2_on_the_cpu(tmp_path, capsys):
     assert "generated (2, 3) tokens" in capsys.readouterr().out
 
 
+# the stacks of global or local attention and SSD blocks, dense or MoE
+GRAPHED = ("chatglm3-6b", "gemma2-27b", "internlm2-20b", SSM_ARCH,
+           "qwen2.5-32b", "qwen2-moe-a2.7b")
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_decode_graph_gate(arch):
-    """The graph serves SSD-only stacks on a CUDA device: mamba2, and no
-    stack with attention, RG-LRU, MoE or an encoder; never on the CPU,
-    nor with ``extra`` inputs."""
+    """The graph serves stacks of global or local attention and SSD
+    blocks, dense or MoE, on a CUDA device: not MLA (deepseek), RG-LRU
+    (recurrentgemma), cross attention (vision) nor an encoder-decoder
+    (whisper); never on the CPU, nor with ``extra`` inputs."""
     cfg = get_config(arch)
     cuda = torch.device("cuda", 0)
-    assert serve.graphs_decode(cfg, cuda) is (arch == SSM_ARCH)
-    assert serve.graphs_decode(cfg, cuda, {}) is (arch == SSM_ARCH)
+    assert serve.graphs_decode(cfg, cuda) is (arch in GRAPHED)
+    assert serve.graphs_decode(cfg, cuda, {}) is (arch in GRAPHED)
     assert not serve.graphs_decode(cfg, cuda, {"frames": np.zeros(1)})
     assert not serve.graphs_decode(cfg, torch.device("cpu"))
 
