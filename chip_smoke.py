@@ -221,6 +221,11 @@ SSM_ARCH, SSM_PARAMS = "mamba2-130m", 128_983_488
 SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 16000, 32   # 16,000 = 62.5 chunks
 MOE_ARCH, MOE_PARAMS = "qwen2-moe-a2.7b", 14_315_784_192
 MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 4000, 32
+# the slot-skipping expert kernel at qwen2-moe's decode shape: checked at
+# these batches (and bf16 at the second), timed at the first two, swept
+# against the batched products over every expert at all of MOE_SWEEP
+MOE_DECODE_CHECK, MOE_DECODE_SWEEP = (1, 4, 16), (1, 2, 4, 8, 16, 32, 64)
+MOE_DECODE_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}   # of the largest |y|
 MLA_ARCH, MLA_PARAMS = "deepseek-v3-671b", 15_111_101_696
 MLA_CUT = dict(n_layers=4, mtp_depth=0)   # 3 dense + 1 MoE layer, no MTP
 MLA_BATCH, MLA_PROMPT, MLA_GEN = 2, 1024, 16
@@ -328,6 +333,7 @@ MODEL_CU = "src/repro_torch/csrc/model_kernels.cu"
 SSM_CU = "src/repro_torch/csrc/ssm_kernels.cu"
 ATTN_BF16_CU = "src/repro_torch/csrc/attention_bf16.cu"
 SSD_BF16_CU = "src/repro_torch/csrc/ssd_bf16.cu"
+MOE_CU = "src/repro_torch/csrc/moe_decode.cu"
 KERNELS = {   # name -> (source, TPU kernel it replaces: reference file:line)
     "fused_filter_aggregate": (ANALYTICS_CU,
                                "src/repro/analytics/kernels.py:447"),
@@ -341,6 +347,8 @@ KERNELS = {   # name -> (source, TPU kernel it replaces: reference file:line)
     "flash_attention_bf16": (ATTN_BF16_CU,
                              "src/repro/kernels/flash_attention.py:36"),
     "ssd_scan_bf16": (SSD_BF16_CU, "src/repro/kernels/ssd_scan.py:32"),
+    "moe_experts_decode": (MOE_CU, "none: the reference's MoE runs through "
+                           "jnp (src/repro/models/moe.py)"),
 }
 MODEL_KERNELS = ("flash_attention", "rglru_scan", "ssd_scan",
                  "flash_attention_bf16", "ssd_scan_bf16")
@@ -909,6 +917,7 @@ def phase_model_kernels(torch, KA, KR, KS, chk, dev):
                          f"{rtol}; max abs error {err})")
         del args, got, wants
     bf16 = bf16_wrappers(torch, KA, KS, chk, gen, dev)
+    moe_rel = moe_decode_checks(torch, chk, dev)
     torch.cuda.synchronize()
     log(f"[model-kernels] kernel == plain on the card: flash_attention "
         f"{chk.cases['flash_attention']} cases (MHA/GQA/MQA, window 0 and "
@@ -935,6 +944,14 @@ def phase_model_kernels(torch, KA, KR, KS, chk, dev):
         f"state within the f32 limit): " + "; ".join(
             f"{name} max abs error {err:.3e}, max error / max "
             f"{rel:.3e}" for name, (err, rel) in bf16.items()))
+    log(f"[model-kernels] moe_experts_decode == plain at qwen2-moe's "
+        f"decode shape (E 60, d 2,048, f 1,408), batches {MOE_DECODE_CHECK} "
+        f"f32 and {MOE_DECODE_CHECK[1]} bf16 "
+        f"({chk.cases['moe_experts_decode']} cases; one launch a call, "
+        f"equal bits twice, empty slots 0): max "
+        f"abs error f32 {chk.err['moe_experts_decode']:.3e}, max error / "
+        f"max |y| " + ", ".join(f"{k} {v:.3e} (limit {MOE_DECODE_RTOL[k]})"
+                                for k, v in moe_rel.items()))
 
 
 def bf16_wrappers(torch, KA, KS, chk, gen, dev):
@@ -1080,6 +1097,117 @@ def ssd_flops(b, s, h, p, n, chunk):
         L = min(chunk, s - c0)
         total += L * (L + 1) // 2 * (2 * n + 2 * p) + 4 * L * n * p
     return b * h * total
+
+
+def moe_decode_params(torch, dev):
+    """qwen2-moe-a2.7b's routed experts of one layer at full width in f32
+    (E 60, d 2,048, f 1,408: 2.08 GB), drawn on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(MOE_ARCH).scaled(dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return cfg, moe.init_moe(gen, cfg, device=dev)
+
+
+def moe_decode_case(torch, dev, cfg, params, b, dtype="float32"):
+    """A single-token group of b tokens routed and dispatched as
+    ``moe_block`` does (x drawn from numpy seed b), the experts in
+    ``dtype`` -> (p, xd (E, C, d), valid (E, C))."""
+    import numpy as np
+    from repro_torch.models import moe
+    dt = getattr(torch, dtype)
+    p = {k: v.to(dt) if k.startswith("w_") else v for k, v in params.items()}
+    x = torch.from_numpy(np.random.default_rng(b).standard_normal(
+        (1, b, cfg.d_model)).astype(np.float32)).to(dev)
+    tok_idx, weight, _, _, _ = moe._route(p, x, cfg, moe.capacity(cfg, b))
+    return p, moe._dispatch(x.to(dt), tok_idx), weight[0] != 0
+
+
+def moe_decode_checks(torch, chk, dev):
+    """[model-kernels] the slot-skipping expert kernel against its plain
+    version at qwen2-moe's decode shape, at the batches of
+    ``MOE_DECODE_CHECK`` in f32 and the second in bf16: one launch a
+    call, the same bits from a second call, the same number of experts
+    read, empty slots 0, within ``MOE_DECODE_RTOL`` of the largest |y|.
+    -> the worst error / max by dtype."""
+    from repro_torch import _ext
+    from repro_torch.models import moe
+    name = "moe_experts_decode"
+    cfg, params = moe_decode_params(torch, dev)
+    worst = {}
+    for b, dtype in [(b, "float32") for b in MOE_DECODE_CHECK] + [
+            (MOE_DECODE_CHECK[1], "bfloat16")]:
+        p, xd, valid = moe_decode_case(torch, dev, cfg, params, b, dtype)
+        ws = [p[k] for k in ("w_gate", "w_up", "w_down")]
+        what = f"{name} b={b} C={xd.shape[1]} {dtype}"
+        _ext.reset_launch_counts()
+        got, read = moe.expert_ffn_decode(xd, *ws, valid, cfg.act,
+                                          max_kept=b * cfg.top_k)
+        if _ext.LAUNCHES[name] != 1:
+            fail(f"{what}: launched {dict(_ext.LAUNCHES)}")
+        again, _ = moe.expert_ffn_decode(xd, *ws, valid, cfg.act,
+                                         max_kept=b * cfg.top_k)
+        want, want_read = moe.expert_ffn_decode_plain(xd, *ws, valid, cfg.act)
+        chk.cases[name] += 1
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / max(float(want.float().abs().max()), 1e-30)
+        if dtype == "float32":
+            chk.err[name] = max(chk.err[name], err)
+        worst[dtype] = max(worst.get(dtype, 0.0), rel)
+        if not torch.equal(got, again):
+            fail(f"{what}: two calls gave other bits")
+        if int(read) != int(want_read) or not bool((got[~valid] == 0).all()):
+            fail(f"{what}: read {int(read)} experts (plain {int(want_read)}) "
+                 f"or wrote an empty slot")
+        if not rel <= MOE_DECODE_RTOL[dtype]:
+            fail(f"{what}: kernel and plain differ by {rel:.3e} of the "
+                 f"largest |y| (limit {MOE_DECODE_RTOL[dtype]})")
+    return worst
+
+
+def moe_decode_timing(torch, dev):
+    """[timing] the slot-skipping expert kernel at qwen2-moe's decode shape
+    (batch 1, the kernels line's row, and 4; f32 and, at batch 1, bf16)
+    beside its plain version and, as the library, the batched products
+    over all 60 experts that it replaces (``moe._expert_ffn``); then the
+    sweep over ``MOE_DECODE_SWEEP`` that set ``moe.DECODE_MAX_SLOTS``.
+    Bound: the kept experts' weights, their slots' x and the whole y, at
+    3.35 TB/s."""
+    from repro_torch.models import moe
+    cfg, params = moe_decode_params(torch, dev)
+    out, sweep = {}, []
+    for b, dtype, name in ((1, "float32", "moe_experts_decode"),
+                           (4, "float32", "moe_experts_decode@b4"),
+                           (1, "bfloat16", "moe_experts_decode@b1-bf16")):
+        p, xd, valid = moe_decode_case(torch, dev, cfg, params, b, dtype)
+        ws = [p[k] for k in ("w_gate", "w_up", "w_down")]
+        e, c, d = xd.shape
+        kept, width = int(valid.any(-1).sum()), xd.element_size()
+        out[name] = dict(
+            ms=device_ms(torch, lambda: moe.expert_ffn_decode(
+                xd, *ws, valid, cfg.act, max_kept=b * cfg.top_k)),
+            plain_ms=device_ms(torch, lambda: moe.expert_ffn_decode_plain(
+                xd, *ws, valid, cfg.act)),
+            library_ms=device_ms(torch, lambda: moe._expert_ffn(p, xd, cfg)),
+            bound_bytes=width * (kept * 3 * d * cfg.d_expert + kept * c * d
+                                 + e * c * d),
+            shape=f"E={e} C={c} d={d} f={cfg.d_expert} batch {b}, {kept} "
+            f"experts kept, {dtype}; library = bmm over all {e} experts")
+        del p, xd, valid, ws
+    for b in MOE_DECODE_SWEEP:
+        p, xd, valid = moe_decode_case(torch, dev, cfg, params, b)
+        ws = [p[k] for k in ("w_gate", "w_up", "w_down")]
+        k_ms = device_ms(torch, lambda: moe.expert_ffn_decode(
+            xd, *ws, valid, cfg.act, max_kept=b * cfg.top_k))
+        lib_ms = device_ms(torch, lambda: moe._expert_ffn(p, xd, cfg))
+        sweep.append((b, xd.shape[1], int(valid.any(-1).sum()), k_ms, lib_ms))
+        del p, xd, valid, ws
+    log("[timing] moe decode sweep (qwen2-moe-a2.7b, f32, device ms; "
+        "DECODE_MAX_SLOTS " + str(moe.DECODE_MAX_SLOTS) + "): " + "; ".join(
+            f"batch {b} C {c} read {k} of {cfg.n_experts}: kernel "
+            f"{km:.4f}, bmm {lm:.4f} ({lm / km:.2f}x)"
+            for b, c, k, km, lm in sweep))
+    return out
 
 
 def phase_timing(torch, K, H, KA, KR, KS, col, dev):
@@ -1315,6 +1443,7 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     log_ssd_launches(torch, lambda: KS.ssd_scan(
         *args[:5], chunk=chunk, initial_state=args[5]), "ssd_scan")
     del args
+    out.update(moe_decode_timing(torch, dev))
 
     for name, r in out.items():
         if name in BF16_KERNELS.values():
@@ -2333,6 +2462,9 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
                 torch, lambda: srv.generate(prompts, gen, extra=extra,
                                             keep_logits=True))
         launches = {k: ext.LAUNCHES[k] for k in MODEL_KERNELS}  # ends here
+        # a graph's warm-up and capture launch the MoE's single-token
+        # kernel; its replays do not count
+        moe_decode = ext.LAUNCHES["moe_experts_decode"]
         peak = torch.cuda.max_memory_allocated(dev)
         srv.close()
         graphed = graphs_decode(cfg, dev, extra)
@@ -2342,6 +2474,12 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
         if launches != want_launches:
             fail(f"[{tag}] one prefill launched {launches}, expected "
                  f"{want_launches}")
+        if cfg.is_moe:
+            if not moe_decode:
+                fail(f"[{tag}] decode never launched moe_experts_decode")
+            log(f"[{tag}] moe_experts_decode launched {moe_decode} times "
+                f"outside replays (a graph's warm-up and capture, or every "
+                f"eager step's MoE layers)")
         logits = stats.pop("logits")
         if out.shape != (batch, gen) or not all(
                 bool(torch.isfinite(x).all()) and x.shape == (
@@ -2409,7 +2547,10 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
             del logits
         del srv
         torch.cuda.empty_cache()
-        return {k: launches[k] for k in used}
+        served = {k: launches[k] for k in used}
+        if cfg.is_moe:
+            served["moe_experts_decode"] = moe_decode
+        return served
     finally:
         remove_store(root)
 

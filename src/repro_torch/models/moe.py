@@ -8,7 +8,12 @@ products (``torch.bmm`` over the expert axis) and combined back.  Tokens
 over capacity are dropped; capacity_factor = E/k makes the dispatch
 lossless, and then ``moe_block`` equals ``moe_block_dense``.  Tokens are
 grouped per batch row when the sequence is longer than one token, and a
-single-token decode step routes the whole batch as one group.
+single-token decode step routes the whole batch as one group.  That step
+keeps a few of the E experts at a small capacity, so it reads only the
+experts that hold a kept slot (``expert_ffn_decode``: a hand-written
+kernel on the card, which finds them there, its plain version on the
+CPU) wherever ``slot_skipping`` allows; empty slots then hold zeros where
+the batched products leave an unused expert's output.
 
 Two choices differ from the reference's arithmetic and keep the card's
 results the same from run to run:
@@ -35,7 +40,9 @@ events on the card while tracing is on (not inside a CUDA graph's
 capture); it counts ``moe.assignments_routed`` (tokens x k) and
 ``moe.assignments_dropped`` (those over an expert's capacity) with
 ``trace.count_device``, on the device, so a graphed decode step counts
-too and nothing waits for the count.
+too and nothing waits for the count; a single-token call also counts
+``moe.decode_experts`` (E) and ``moe.decode_experts_read`` (the experts
+whose weights it read).
 
 On a mesh (activation rules on, ``models.common.axis_rules``) the
 dispatch tensors shard E over the expert axis (expert parallelism) and
@@ -49,12 +56,13 @@ and the per-token gather of ``_combine``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.grad import wants_grad
 from repro_torch.models import common
 from repro_torch.models.common import activation, dense_init, on_replicas
 
@@ -210,6 +218,139 @@ def _expert_ffn(p: Dict, xd: torch.Tensor, cfg: ModelConfig
     return _shard_dispatch(torch.bmm(h, p["w_down"].to(dt)))
 
 
+# --------------------------------------------------------------------------
+# The single-token step's experts: only those holding a kept slot are read
+# --------------------------------------------------------------------------
+
+# Slots per expert up to which a single-token step takes the slot-skipping
+# products (``expert_ffn_decode``); above it every expert is likely kept and
+# the step keeps the batched products.  The H100 sweep at qwen2-moe's
+# widths in f32 (chip_smoke.py [timing], PERF.md) set it: the kernel took
+# 0.065 ms against the batched products' 0.79 at batch 1 (C 1, 4 of 60
+# experts read), 0.50 against 0.76 at batch 16 (C 1, 41 read), 0.70
+# against 0.74 at batch 32 (C 3, 54 read), and lost at batch 64 (C 5,
+# every expert read: 0.92 against 0.74).
+DECODE_MAX_SLOTS = 3
+_DECODE_ACTS = {"silu": 0, "gelu": 1}
+_EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def expert_ffn_decode_plain(xd: torch.Tensor, w_gate: torch.Tensor,
+                            w_up: torch.Tensor, w_down: torch.Tensor,
+                            valid: torch.Tensor, act: str
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gated MLP of the experts that hold a valid slot, on their slots:
+    xd (E, C, d), w_gate/w_up (E, d, f), w_down (E, f, d), valid (E, C)
+    bool -> (yd (E, C, d) with zeros in every invalid slot, the number of
+    experts read, 0-d int64).  Reads the kept experts' indices on the
+    host."""
+    kept = valid.any(-1)
+    idx = kept.nonzero()[:, 0]
+    dt = xd.dtype
+    xk = xd[idx]
+    fn = activation(act)
+    h = fn(torch.bmm(xk, w_gate[idx].to(dt))) * torch.bmm(
+        xk, w_up[idx].to(dt))
+    yk = torch.bmm(h, w_down[idx].to(dt))
+    yd = torch.zeros_like(xd)
+    yd[idx] = torch.where(valid[idx][..., None], yk, 0.0)
+    return yd, kept.sum()
+
+
+def expert_ffn_decode(xd: torch.Tensor, w_gate: torch.Tensor,
+                      w_up: torch.Tensor, w_down: torch.Tensor,
+                      valid: torch.Tensor, act: str,
+                      max_kept: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``expert_ffn_decode_plain``'s function.  A CUDA tensor launches
+    ``sage_moe_experts_decode`` (``csrc/moe_decode.cu``), which finds the
+    kept experts on the card (nothing read to the host, so a CUDA graph
+    captures it); a CPU tensor runs the plain version.  ``max_kept``: at
+    least the number of experts that hold a valid slot (a single-token
+    group: tokens x top_k), E when not given."""
+    e, c, d = xd.shape
+    if not xd.is_cuda:
+        return expert_ffn_decode_plain(xd, w_gate, w_up, w_down, valid, act)
+    ws = (w_gate, w_up, w_down)
+    if (tuple(w_gate.shape) != (e, d, w_gate.shape[-1])
+            or w_up.shape != w_gate.shape
+            or tuple(w_down.shape) != (e, w_gate.shape[-1], d)
+            or tuple(valid.shape) != (e, c)):
+        raise ValueError(f"expert_ffn_decode: xd {tuple(xd.shape)}, weights "
+                         f"{[tuple(w.shape) for w in ws]} and valid "
+                         f"{tuple(valid.shape)} do not fit (E, C, d), "
+                         f"(E, d, f), (E, f, d), (E, C)")
+    if xd.dtype not in (torch.float32, torch.bfloat16) or any(
+            w.dtype != xd.dtype for w in ws) or valid.dtype != torch.bool:
+        raise TypeError("sage_moe_experts_decode takes f32 or bf16 xd and "
+                        "weights of its dtype, and a bool valid")
+    if act not in _DECODE_ACTS:
+        raise ValueError(f"sage_moe_experts_decode has no activation {act!r}")
+    if any(t.device != xd.device for t in (*ws, valid)):
+        raise ValueError("expert_ffn_decode: every input on xd's device")
+    ranks = e if max_kept is None else max(1, min(e, int(max_kept)))
+    return _launch_decode(xd.contiguous(), *(w.contiguous() for w in ws),
+                          valid.contiguous(), _DECODE_ACTS[act], ranks)
+
+
+def _launch_decode(xd, w_gate, w_up, w_down, valid, act: int, ranks: int):
+    """One call of ``sage_moe_experts_decode`` (two launches) on checked
+    CUDA inputs."""
+    from repro_torch import _ext
+    e, c, d = xd.shape
+    f = w_gate.shape[-1]
+    h = torch.empty((ranks, c, f), dtype=torch.float32, device=xd.device)
+    yd = torch.empty_like(xd)
+    kept = torch.empty((), dtype=torch.int64, device=xd.device)
+    lib = _ext.library()
+    with torch.cuda.device(xd.device):
+        err = lib.sage_moe_experts_decode(
+            xd.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            w_down.data_ptr(), valid.data_ptr(), e, c, d, f, ranks, act,
+            int(xd.dtype == torch.bfloat16), h.data_ptr(), yd.data_ptr(),
+            kept.data_ptr(), torch.cuda.current_stream(xd.device).cuda_stream)
+    _ext.check(lib, err, "moe_experts_decode")
+    _ext.count_launch("moe_experts_decode")
+    return yd, kept
+
+
+def slot_skipping(p: Dict, xd: torch.Tensor, cfg: ModelConfig) -> bool:
+    """Whether a single-token step's dispatched slots xd (E, C, d) take
+    ``expert_ffn_decode``: plain tensors on the card or the CPU (not a
+    mesh's ``DTensor``, not ``meta``), weights of xd's dtype (f32 or
+    bf16), no gradient wanted, an activation the kernel has, and at most
+    ``DECODE_MAX_SLOTS`` slots an expert."""
+    ws = [p[k] for k in _EXPERT_KEYS]
+    return (all(type(t) is torch.Tensor for t in (xd, *ws))
+            and xd.device.type in ("cuda", "cpu")
+            and all(w.device == xd.device and w.dtype == xd.dtype
+                    for w in ws)
+            and xd.dtype in (torch.float32, torch.bfloat16)
+            and not wants_grad(xd, *ws)
+            and cfg.act in _DECODE_ACTS
+            and xd.shape[1] <= DECODE_MAX_SLOTS)
+
+
+def _single_token_experts(p: Dict, xd: torch.Tensor, weight: torch.Tensor,
+                          cfg: ModelConfig, tokens: int) -> torch.Tensor:
+    """A single-token step's expert products: the kept experts' only where
+    ``slot_skipping`` allows, else every expert's.  Counts
+    ``moe.decode_experts`` (E) and ``moe.decode_experts_read`` (the
+    experts whose weights were read) on the device; a ``DTensor`` is not
+    counted."""
+    e = xd.shape[0]
+    if slot_skipping(p, xd, cfg):
+        yd, read = expert_ffn_decode(
+            xd, *(p[k] for k in _EXPERT_KEYS), weight[0] != 0, cfg.act,
+            max_kept=tokens * cfg.top_k)
+    else:
+        yd, read = _expert_ffn(p, xd, cfg), e
+    if type(xd) is torch.Tensor:
+        trace.count_device("moe.decode_experts", e, xd.device)
+        trace.count_device("moe.decode_experts_read", read, xd.device)
+    return yd
+
+
 def _combine(yd: torch.Tensor, experts: torch.Tensor, slot: torch.Tensor,
              cap: int) -> torch.Tensor:
     """Sum each token's kept expert outputs in ascending expert order.
@@ -267,7 +408,9 @@ def moe_block(p: Dict, x: torch.Tensor, cfg: ModelConfig
             xg, *(p[k] for k in names))
         _count_routes(slot)
         with trace.span("moe.experts", device=True):
-            yd = _expert_ffn(p, _dispatch(xg, tok_idx), cfg)
+            xd = _dispatch(xg, tok_idx)
+            yd = (_single_token_experts(p, xd, weight, cfg, b) if s == 1
+                  else _expert_ffn(p, xd, cfg))
         yd = yd * weight.transpose(0, 1).reshape(
             yd.shape[0], -1, 1).to(x.dtype)
         out = _combine(yd, experts, slot, cap).reshape(b, s, d)

@@ -786,8 +786,10 @@ def test_attention_decode_graph_matches_eager_decode(dev, tmp_path, arch,
     greedy tokens, logits within 1e-5 of the row's largest |logit| (the
     same ops in f32; a GEMM may pick another algorithm under capture),
     and the same MoE routed and dropped counts.  SMOKE's head_dim 16 is
-    not one B5 takes, so both prefill through the plain path."""
-    from repro_torch import trace
+    not one B5 takes, so both prefill through the plain path.  A MoE
+    stack's decode steps launch the slot-skipping expert kernel, and count
+    the experts of every step and those read the same graphed or eager."""
+    from repro_torch import _ext, trace
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.serve import Server
     from repro_torch.models import model as mdl
@@ -796,6 +798,7 @@ def test_attention_decode_graph_matches_eager_decode(dev, tmp_path, arch,
     srv = Server(cfg, tmp_path / "s", device=dev, use_kernels=False,
                  max_len=max(lens) + gen)
     before = trace.counters()
+    launched = _ext.LAUNCHES["moe_experts_decode"]
     rng = np.random.default_rng(batch)
     served = []
     for n in lens:
@@ -817,13 +820,19 @@ def test_attention_decode_graph_matches_eager_decode(dev, tmp_path, arch,
         for a, b in zip(got, want):
             row = b.abs().amax(-1, keepdim=True)
             assert bool(((a - b).abs() <= 1e-5 * row).all())
-        for name in ("moe.assignments_routed", "moe.assignments_dropped"):
+        for name in ("moe.assignments_routed", "moe.assignments_dropped",
+                     "moe.decode_experts", "moe.decode_experts_read"):
             assert counts.get(name) == eager.counts.get(name)
         if cfg.is_moe:
             assert counts["moe.assignments_routed"] == (
                 cfg.n_layers * batch * (n + gen) * cfg.top_k)
+            assert counts["moe.decode_experts"] == (
+                cfg.n_layers * gen * cfg.n_experts)
+            assert 0 < counts["moe.decode_experts_read"] <= (
+                cfg.n_layers * gen * min(cfg.n_experts, batch * cfg.top_k))
         served.append(out)
     srv.close()
+    assert (_ext.LAUNCHES["moe_experts_decode"] > launched) == cfg.is_moe
     after = trace.counters()
     counted = {k: after.get(k, 0) - before.get(k, 0) for k in (
         "serve.decode_graph_captures", "serve.decode_graph_steps",
@@ -1074,6 +1083,106 @@ def test_moe_combine_gives_the_same_bits_every_run(dev):
     for _ in range(5):
         again, _ = moe.moe_block(pd, x, cfg)
         assert torch.equal(again, first)
+
+
+# ---------------------------------------------------------------------------
+# the slot-skipping expert kernel (csrc/moe_decode.cu) against its plain
+# version on the same dispatched slots: f32 within 1e-5 of the largest
+# |y| (FFMA sums in another order than cuBLAS's), bf16 within 2e-2 (the
+# plain version rounds h to bf16, the kernel keeps it f32); empty slots
+# and unread experts exactly 0; one launch a call, the same bits again
+# ---------------------------------------------------------------------------
+
+MOE_DECODE_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _decode_slots(dev, cfg, b, dtype, seed=0):
+    """Weights drawn on the card and a single-token group of b tokens
+    routed and dispatched as moe_block does."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = moe.init_moe(gen, cfg, device=dev)
+    p["router"] = p["router"] * 8.0
+    p = {k: v.to(dtype) if k.startswith("w_") else v for k, v in p.items()}
+    x = torch.randn((1, b, cfg.d_model), generator=gen, device=dev)
+    tok_idx, weight, _, _, _ = moe._route(p, x, cfg, moe.capacity(cfg, b))
+    return p, moe._dispatch(x.to(dtype), tok_idx), weight[0] != 0
+
+
+def _check_decode_kernel(p, xd, valid, act, max_kept):
+    from repro_torch import _ext
+    from repro_torch.models import moe
+    ws = (p["w_gate"], p["w_up"], p["w_down"])
+    _ext.reset_launch_counts()
+    got, read = moe.expert_ffn_decode(xd, *ws, valid, act, max_kept=max_kept)
+    assert _ext.LAUNCHES["moe_experts_decode"] == 1
+    again, read2 = moe.expert_ffn_decode(xd, *ws, valid, act,
+                                         max_kept=max_kept)
+    assert torch.equal(got, again) and int(read) == int(read2)
+    want, want_read = moe.expert_ffn_decode_plain(xd, *ws, valid, act)
+    assert got.dtype == want.dtype == xd.dtype and got.shape == want.shape
+    assert int(read) == int(want_read) == int(valid.any(-1).sum())
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[~valid] == 0).all())
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= MOE_DECODE_RTOL[xd.dtype] * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 16])
+def test_moe_decode_kernel_matches_plain_at_full_width(dev, b, dtype):
+    """qwen2-moe-a2.7b's decode shape: E 60, d 2,048, f 1,408, top 4."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-moe-a2.7b").scaled(dtype="float32")
+    p, xd, valid = _decode_slots(dev, cfg, b, dtype)
+    _check_decode_kernel(p, xd, valid, cfg.act, b * cfg.top_k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,b,over", [
+    ("deepseek-v3-671b", 1, {}), ("deepseek-v3-671b", 5, {}),
+    # element loads: d and f off the 16-byte vectors, a GELU expert
+    ("qwen2-moe-a2.7b", 3, dict(d_model=66, d_expert=30, n_experts=7,
+                                top_k=3, act="gelu"))])
+def test_moe_decode_kernel_matches_plain_at_smoke_widths(dev, arch, b, over,
+                                                         dtype):
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config(arch).scaled(dtype="float32", **over)
+    p, xd, valid = _decode_slots(dev, cfg, b, dtype, seed=b)
+    _check_decode_kernel(p, xd, valid, cfg.act, b * cfg.top_k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_decode_kernel_takes_slots_over_its_chunk(dev, dtype):
+    """C 11 slots, more than one chunk of S (8 f32, 4 bf16), half of them
+    valid, and every expert possibly kept (max_kept E)."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("qwen2-moe-a2.7b").scaled(dtype="float32")
+    p, xd, _ = _decode_slots(dev, cfg, 1, dtype)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    xd = torch.randn((cfg.n_experts, 11, cfg.d_model), generator=gen,
+                     device=dev).to(dtype)
+    valid = torch.rand((cfg.n_experts, 11), generator=gen, device=dev) < 0.5
+    valid[1] = False                      # an expert no slot keeps
+    _check_decode_kernel(p, xd, valid, cfg.act, cfg.n_experts)
+
+
+def test_moe_decode_kernel_refuses_what_it_cannot_take(dev):
+    from repro_torch import _ext
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    cfg = get_smoke_config("qwen2-moe-a2.7b").scaled(dtype="float32")
+    p, xd, valid = _decode_slots(dev, cfg, 2, torch.float32)
+    ws = (p["w_gate"], p["w_up"], p["w_down"])
+    _ext.reset_launch_counts()
+    with pytest.raises(TypeError):
+        moe.expert_ffn_decode(xd.bfloat16(), *ws, valid, cfg.act)
+    with pytest.raises(ValueError):
+        moe.expert_ffn_decode(xd, *ws, valid[:, :0], cfg.act)
+    with pytest.raises(ValueError):
+        moe.expert_ffn_decode(xd, *ws, valid, "relu")
+    assert _ext.LAUNCHES["moe_experts_decode"] == 0
 
 
 def test_moe_server_kernel_path_matches_plain_path_on_cuda(dev, tmp_path):
