@@ -4,7 +4,16 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases; any failure exits non-zero, and no phase's failure is caught:
+It holds what neither of the two other on-card suites checks.  Each
+kernel against its plain version, at edge shapes and at the shapes the
+served and trained paths give it, is ``tests/test_torch_cuda.py``
+(``pytest -m cuda``), which also lists those served shapes; the
+full-width numbers and checks of the benchmark's cells (mamba2-130m
+trained on 8 x 2,048 tokens and serving long prompts, qwen2-moe-a2.7b
+serving code, each at batch 1) are ``sagebench/``'s.
+
+Phases, in the order they run; any failure exits non-zero, and no
+phase's failure is caught:
 
 1. Card and build: the card's name and power limit (nvidia-smi), the
    torch and CUDA versions, the one nvcc build of every
@@ -13,20 +22,20 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
    and the count of tensor-core instructions (HMMA, HGMMA) and TMA loads
    (UTMALDG) in the SASS of the flash-attention and SSD kernels
    (cuobjdump): the bf16 kernels of B5 and B6 must hold HGMMA.
-2. Each CUDA kernel against its plain PyTorch version on the card over
-   edge shapes, ops, dtypes and expression specs; int results must be
-   equal, f32 min/max equal (NaN where plain has NaN), f32 sums within
-   ``F32_SUM_RTOL`` of the segment's sum of |v| (they add in another
-   order), the heat scan equal bit for bit (``[heat]``); B1 and B2 also
-   at their design's thresholds (``AGG_CASES``), and their f32 sums must
-   repeat bit for bit at 1 and 32 segments (a table a thread).  Each kernel is also timed on the
-   device (CUDA events, the card kept busy while the host enqueues) at
-   the shape its path gives it, beside its bound, its plain version and,
-   where one exists, one PyTorch library call (B5 also at every served
-   shape, in f32 and on bf16 inputs through its bf16 kernel; B6 on bf16
-   inputs too, each B6 call split into its launches); one
-   ``heat_scores`` call at 262,144 objects is split into its host and
-   device parts.
+2. ``[timing]``: each kernel timed on the device (CUDA events, the card
+   kept busy while the host enqueues) at the shape its path gives it,
+   beside its bound, its plain version and, where one exists, one
+   PyTorch library call (B5 also at every served shape, in f32 and on
+   bf16 inputs through its bf16 kernel; B6 on bf16 inputs too, each B6
+   call split into its launches; the slot-skipping MoE expert kernel at
+   qwen2-moe's decode shape and the sweep behind
+   ``moe.DECODE_MAX_SLOTS``).  Each timed kernel's output is held once
+   to its plain version's on the same inputs, at the card tests'
+   limits (``held``).  Bounds take bytes at the HBM rate and
+   B5's and B6's operations at the tensor cores' peaks, B6's counted
+   step by step, as ``sagebench/counts.py`` counts them; the others'
+   operations at f32's 67 TFLOP/s.  One ``heat_scores`` call at 262,144
+   objects is split into its host and device parts.
 3. The main path at full size: a store of 16 partitions x 4,194,304
    rows x 4 int32 columns (1 GiB, made from torch.Generator seed 0) and
    queries (a)-(d) through ``Clovis.analytics()``; each result must
@@ -53,100 +62,75 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
    the default policy, query (a) through the front door before and
    after ``compact()``, both equal to numpy over the rows.  B1, B2 and
    B3 must launch in these phases.
-6. ``[model-kernels]`` (before the timing): B5 flash attention and B7
-   the RG-LRU scan against their plain versions at the serving shapes
-   and at edge shapes; B7 bit for bit, B5 within ``ATTN_RTOL`` of each
-   query row's largest |o|.  ``[serve]``: recurrentgemma-9b at
-   full width (9,627,414,528 f32 parameters drawn on the card from
-   seed 0) serves 4 prompts of 4,000 tokens (numpy seed 0) and 32
-   greedy tokens through ``repro_torch.launch.serve.Server``; its
-   prefill must launch B5 12 and B7 26 times, its logits must agree
-   with the ``use_kernels=False`` path on the same weights at prefill
-   and at every decode step (within ``SERVE_LOGIT_RTOL`` of the step's
-   largest |logit|) with equal greedy tokens (in f32, for every model
-   but the MoE ones: C19), and the token log must read back from
-   Clovis; two more decode steps run under torch.profiler (device busy
-   share).
-   ``[model-kernels]`` also holds B6, the Mamba2 SSD scan, against its
-   plain version at the serving shape and at edge shapes (y and the
-   final state within ``SSD_RTOL`` of each (batch, head)'s largest
-   |value|) and, at one small shape, against the sequential oracle
-   ``ssd_reference`` (within ``SSD_SEQ_RTOL``).  ``[serve-ssm]`` (after
-   ``[serve]`` has freed its weights): mamba2-130m at full width
-   (128,983,488 f32 parameters from seed 0) serves 4 prompts of 16,000
-   tokens and 32 greedy tokens the same way; its prefill must launch B6
-   24 times and B5/B7 never.  ``[serve-moe]``: qwen2-moe-a2.7b at full
-   width and depth (14,315,784,192 f32 parameters from seed 0; 24 MoE
-   layers of 60 routed experts, top 4, capacity factor 1.25, and 4
-   shared) serves 4 prompts of 4,000 tokens and 32 greedy tokens the
-   same way; its prefill must launch B5 24 times (MHA, hd 128) and
-   B6/B7 never; the prefill is split by CUDA events into B5, the
-   router, dispatch, expert products, combine and shared experts, and
-   the two paths' routing choices in the prefill are compared; its
-   decode is replayed from a CUDA graph, and its greedy tokens must equal
-   an eager prefill + ``decode_step`` loop's (as ``[serve-ssm]``'s).  ``[serve-mla]``:
-   deepseek-v3-671b at full width, its depth cut to its 3 dense layers
-   and 1 MoE layer (256 experts, top 8, sigmoid router with its bias)
-   and no MTP (15,111,101,696 f32 parameters) serves 2 prompts of 1,024
-   tokens and 16 greedy tokens; it runs no TPU kernel (MLA's q/k heads
-   are wider than its v heads), so instead of a plain path it is held
-   to the reference's own invariant: on the same weights at capacity
-   E/k (lossless), 1 prompt of 256 tokens, prefill plus 8 absorbed
-   decode steps give the expanded form's full-forward logits over the
-   prompt and the fed tokens (within ``SERVE_LOGIT_RTOL``).
-   ``[serve-whisper]``: whisper-large-v3 at full width and depth
-   (1,392,056,320 f32 parameters) serves 4 prompts of 384 tokens and 32
-   greedy tokens the same way, with 4 x 1,500 frames drawn after the
-   prompts (the reference's stub frontend); its decoder is 32 ``global``
-   blocks that never read the encoder (as in the reference), so its
-   prefill launches B5 32 times, and the encoder is driven on its own
-   over the frames (32 non-causal B5 launches) against its plain path;
-   greedy tokens must be equal.  ``[serve-vision]``: llama-3.2-vision at
-   full width cut to 10 layers (8 global, 2 gated cross;
-   10,657,899,012 f32 parameters), both gates of each cross layer set
-   to 0.5 after the seeded init (at 0 a cross layer is the identity),
-   4 x 1,601 image embeddings, 4 prompts of 1,024 tokens and 32 greedy
-   tokens: B5 10 times a prefill (GQA self attention and sq != sk cross
-   attention), the same checks, and other image embeddings must move
-   the prefill logits by more than ``MEMORY_MOVE_RTOL``.
-   ``[serve-bf16]``: mamba2-130m (B6) and whisper-large-v3 (B5) at full
-   width in their configs' default bf16, through the bf16 kernels
-   (``attention_bf16.cu``, ``ssd_bf16.cu``; the f32 ones never launch):
-   every block (and whisper's
-   encoder blocks) run through the kernels and through the plain path
-   on the same bf16 input, within ``BF16_LAYER_RTOL`` of the block's
-   largest |value|; and the kernel path's logits (and encoder output)
-   no farther from the plain f32 path on the same weights than the
-   plain bf16 path's, by more than ``BF16_F32_MARGIN`` of that distance
-   (|a - b| / |b|, averaged over the steps).  B5's and B6's bf16
-   kernels are also held to their plain versions' f32 results on bf16
-   inputs in ``[model-kernels]``, at every ``ATTN_CASES`` shape and every
-   ``SSD_CASES`` shape with and without a state (the f32 limits plus
-   2^-8 of |value|, one output rounding).
-7. ``[edge]``: ``benchmarks/bench_edge.py``'s hostile schedule (seed
+6. ``[edge]``: ``benchmarks/bench_edge.py``'s hostile schedule (seed
    2026, 4 producers, 1,200 events, 3 crashes: duplicates, reordering,
    poison, a torn tail) through the port's ``EdgeIngestor`` into a
    continuous ``EventWindow`` sum on the card, with ``tests/chaos.py``'s
    harness loaded over ``repro_torch.edge``; streaming windows plus late
    adjustments must equal the batch query and the schedule's sums, the
    dead letters the poison injected; B2 must launch.
+7. The full-width models that no benchmark cell serves (and the cells'
+   two at batch 4), each through
+   ``repro_torch.launch.serve.Server`` with weights drawn on the card
+   from seed 0 and prompts from numpy seed 0.  ``[serve]``:
+   recurrentgemma-9b (9,627,414,528 f32 parameters) serves 4 prompts of
+   4,000 tokens and 32 greedy tokens; its prefill must launch B5 12 and
+   B7 26 times, its logits must agree with the ``use_kernels=False``
+   path on the same weights at prefill and at every decode step (within
+   ``SERVE_LOGIT_RTOL`` of the step's largest |logit|) with equal greedy
+   tokens, and the token log must read back from Clovis.
+   ``[serve-mla]``: deepseek-v3-671b, its depth cut to its 3 dense
+   layers and 1 MoE layer (256 experts, top 8, sigmoid router with its
+   bias) and no MTP (15,111,101,696 f32 parameters), serves 2 prompts of
+   1,024 tokens and 16 greedy tokens; it runs no TPU kernel (MLA's q/k
+   heads are wider than its v heads), and its eager decode must launch
+   the MoE expert kernel; instead of a plain path it is held to the
+   reference's own invariant: on the same weights at capacity E/k
+   (lossless), 1 prompt of 256 tokens, prefill plus 8 absorbed decode
+   steps give the expanded form's full-forward logits over the prompt
+   and the fed tokens (within ``SERVE_LOGIT_RTOL``).
+   ``[serve-whisper]``: whisper-large-v3 uncut (1,392,056,320 f32
+   parameters) serves 4 prompts of 384 tokens and 32 greedy tokens with
+   4 x 1,500 frames drawn after the prompts (the reference's stub
+   frontend); its decoder is 32 ``global`` blocks that never read the
+   encoder (as in the reference), so its prefill launches B5 32 times,
+   and the encoder is driven on its own over the frames (32 non-causal
+   B5 launches) against its plain path.  ``[serve-vision]``:
+   llama-3.2-vision cut to 10 layers (8 global, 2 gated cross;
+   10,657,899,012 f32 parameters), both gates of each cross layer set
+   to 0.5 after the seeded init (at 0 a cross layer is the identity),
+   4 x 1,601 image embeddings, 4 prompts of 1,024 tokens and 32 greedy
+   tokens: B5 10 times a prefill, the same checks, and other image
+   embeddings must move the prefill logits by more than
+   ``MEMORY_MOVE_RTOL``.  ``[serve-bf16]``: mamba2-130m (B6; 4 prompts
+   of 16,000 tokens, decode replayed from a CUDA graph) and
+   whisper-large-v3 (B5) in their configs' default bf16, through the
+   bf16 kernels (``attention_bf16.cu``, ``ssd_bf16.cu``; the f32 ones
+   never launch): every block (and whisper's encoder blocks) run through
+   the kernels and through the plain path on the same bf16 input,
+   within ``BF16_LAYER_RTOL`` of the block's largest |value|; and the
+   kernel path's logits (and encoder output) no farther from the plain
+   f32 path on the same weights than the plain bf16 path's, by more
+   than ``BF16_F32_MARGIN`` of that distance (|a - b| / |b|, averaged
+   over the steps).  ``[serve-ssm]`` and ``[serve-moe]``: the cells'
+   models at batch 4, where their cells serve batch 1, the same checks
+   in f32: mamba2-130m (128,983,488 parameters) on 4 prompts of 16,000
+   tokens, B6 24 times a prefill; qwen2-moe-a2.7b at full width and
+   depth (14,315,784,192 parameters; 24 MoE layers of 60 routed
+   experts, top 4, and 4 shared) on 4 prompts of 4,000 tokens, B5 24
+   times a prefill and the MoE expert kernel in its decode, whose
+   greedy tokens may differ from the plain path's at a routing near-tie
+   (C19).  Each decodes from a CUDA graph, so each decode step's logits
+   are the graph's, held to the plain path's eager steps.
 8. ``[train]``: mamba2-130m at full width and depth in f32 (seed 0)
    trained through ``repro_torch.launch.train.Trainer`` on 8 x 2,048
-   tokens a step from a corpus in Clovis, B6 in every forward pass
-   (24 launches a step) with its gradient recomputed from the plain
-   ``ssd_chunked``.  One gradient against the ``use_kernels=False``
-   path first (each leaf within ``TRAIN_GRAD_RTOL`` of its largest
-   |g|); steps 1-20 with stream checkpoints; a T1 device killed and
-   repaired by HA; a new Trainer restores step 20 bit for bit against a
-   host snapshot and trains steps 21-40; the loss must fall.  Then one
-   checkpoint of the whole state (params, m, v) with each of the
-   collective, window and stream strategies, each restored bit for bit,
-   and three steps timed with CUDA events (forward, backward,
-   optimizer), B6's calls inside ``loss_fn`` timed and counted (24 a
-   forward, equal to its launches, or the phase fails); last, B6 at the
-   train shape held against ``ssd_chunked`` on the same inputs (y and
-   final state within ``SSD_RTOL`` of each (batch, head)'s largest
-   |value|) and timed.
+   tokens a step from a corpus in Clovis, B6 in every forward pass (24
+   launches a step): steps 1-20 with stream checkpoints; a T1 device
+   killed and repaired by HA; a new Trainer restores step 20 bit for
+   bit against a host snapshot and trains steps 21-40; the loss must
+   fall.  Then one checkpoint of the whole state (params, m, v) with
+   each of the collective, window and stream strategies, each restored
+   bit for bit.
 9. ``[dist]``: qwen2.5-32b at full width (d_model 5,120, 40 heads over
    8 KV heads, hd 128, d_ff 27,648, vocab 152,064) cut to 2 of its 64
    layers (2,532,350,976 f32 parameters), 2 x 2,048 tokens a step from
@@ -154,21 +138,16 @@ Phases; any failure exits non-zero, and no phase's failure is caught:
    from the same seed on the same batches, through the ``Trainer`` on a
    world-size-1 NCCL process group's 1 x 1 ``("data", "model")`` mesh
    (``DTensor`` parameters and AdamW state): the losses within
-   ``DIST_LOSS_RTOL`` relative, B5 two launches a forward (GQA 40 over
-   8, checked in ``[model-kernels]`` first).  The dry run of the same
-   cell on a fake 1 x 1 group (``repro_torch.launch.dryrun``) must hold
-   the state the mesh Trainer holds on the card, byte for byte; the
-   roofline (``launch.analysis``) of this step and of ``[train]``'s,
-   each counted on ``meta`` through the kernels' plain versions, beside
-   the measured step, the model-FLOPs share at f32's 67 TFLOP/s and the
-   card's name and power limit.
+   ``DIST_LOSS_RTOL`` relative, B5 two launches a forward.  The dry run
+   of the same cell on a fake 1 x 1 group (``repro_torch.launch.dryrun``)
+   must hold the state the mesh Trainer holds on the card, byte for
+   byte.
 10. One JSON line of per-kernel numbers, then the contract's last line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
 from __future__ import annotations
 
-import contextlib
 import datetime
 import hashlib
 import importlib.util
@@ -182,23 +161,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
-F32_SUM_RTOL = 1e-4            # f32 sums vs plain, relative to sum |v|
 PARTS, ROWS, KEYS, WINDOW = 16, 4_194_304, 4096, 4096
-CHECK_ROWS = (1, 1023, 1025, ROWS)
-CHECK_SEGS = (1, 128, 4096, 60000)   # 60000: the global-atomic path
 BINS = 32                      # query (c)'s histogram
-# (rows, segs, every row in one segment): B1 and B2 keep a table a thread
-# up to 32 segments, one a block up to 8,192, atomics above; their grid
-# is a block per 16,384 rows up to one a multiprocessor (132 blocks from
-# 2,146,305 rows); query (c)'s shape; all rows in one segment
-AGG_CASES = ((70_000, 32, False), (70_000, 33, False),
-             (100_003, 8192, False), (100_003, 8193, False),
-             (16_384, 4096, False), (16_385, 4096, False),
-             (2_162_689, 4096, False), (ROWS, BINS, False),
-             (1 << 20, 1, True), (1 << 20, 4096, True))
-OPS = ("sum", "count", "min", "max")
-HEAT_SHAPES = ((1, 1), (24, 37), (7, 129), (64, 1000))   # (hist, nobj)
 HEAT_HIST, HEAT_OBJS = 64, 262_144   # extractor hist_len x tracked objects
 # [percip]: bench_percipience.py's traces cut from its 1,024 objects and
 # 2,048 reads to 512 and 1,024 (still two passes of the sequential and
@@ -210,10 +174,6 @@ CLUSTER_NODES, CLUSTER_REPLICAS = 4, 2
 TENANTS, SERVED = ("ops", "science"), ("a_mean", "b_count", "c_histogram")
 DELTAS, DELTA_ROWS = 256, 4096  # [compaction]: 64 KiB deltas, 16 MiB
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
-TF32_FLOPS = 495e12            # H100 SXM dense TF32 tensor cores
-TF32X3_FLOPS = TF32_FLOPS / 3  # B6 split-TF32 products; a reference only
-BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
-ATTN_RTOL = 1e-4               # B5 vs plain, relative to the row's max |o|
 SERVE_LOGIT_RTOL = 1e-3        # kernel vs plain path, of the step's max |logit|
 SERVE_ARCH, SERVE_PARAMS = "recurrentgemma-9b", 9_627_414_528
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4000, 32
@@ -221,11 +181,9 @@ SSM_ARCH, SSM_PARAMS = "mamba2-130m", 128_983_488
 SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 16000, 32   # 16,000 = 62.5 chunks
 MOE_ARCH, MOE_PARAMS = "qwen2-moe-a2.7b", 14_315_784_192
 MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 4000, 32
-# the slot-skipping expert kernel at qwen2-moe's decode shape: checked at
-# these batches (and bf16 at the second), timed at the first two, swept
-# against the batched products over every expert at all of MOE_SWEEP
-MOE_DECODE_CHECK, MOE_DECODE_SWEEP = (1, 4, 16), (1, 2, 4, 8, 16, 32, 64)
-MOE_DECODE_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}   # of the largest |y|
+# the slot-skipping expert kernel at qwen2-moe's decode shape, swept
+# against the batched products over every expert
+MOE_DECODE_SWEEP = (1, 2, 4, 8, 16, 32, 64)
 MLA_ARCH, MLA_PARAMS = "deepseek-v3-671b", 15_111_101_696
 MLA_CUT = dict(n_layers=4, mtp_depth=0)   # 3 dense + 1 MoE layer, no MTP
 MLA_BATCH, MLA_PROMPT, MLA_GEN = 2, 1024, 16
@@ -244,18 +202,12 @@ BF16_LAYER_RTOL = 3e-2         # bf16: one block through the kernels vs
 BF16_F32_MARGIN = 0.1          # bf16: the kernel path's mean distance from
                                # the f32 path may exceed the plain bf16
                                # path's by this share of it
-SSD_RTOL = 1e-4                # B6 vs plain, of the (batch, head)'s max |value|
-SSD_SEQ_RTOL = 1e-3            # B6 vs the sequential oracle (step-by-step
-                               # decays against exponentiated cumsums)
-PROFILE_STEPS = 2              # decode steps traced after the comparison
 # [edge]: benchmarks/bench_edge.py's schedule and windows
 EDGE_SEED, EDGE_PRODUCERS, EDGE_EVENTS, EDGE_CRASHES = 2026, 4, 1200, 3
 EDGE_WINDOW_S, EDGE_REORDER_S, EDGE_LATENESS_S = 1.0, 0.4, 0.5
 # [train]: mamba2-130m, 8 x 2,048 tokens a step, 20 steps, a restart, 20
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = SSM_ARCH, 8, 2048
-TRAIN_STEPS, TRAIN_RESTART, TRAIN_TIMED_STEPS = 40, 20, 3
-TRAIN_GRAD_RTOL = 1e-3         # kernel vs plain gradient, of the leaf's max |g|
-TRAIN_LOSS_RTOL = 1e-5         # kernel vs plain loss, relative
+TRAIN_STEPS, TRAIN_RESTART = 40, 20
 HOST_COVER_CYCLES = 2_000_000  # ~1 ms of card spin ahead of each timed call
 # [dist]: qwen2.5-32b at full width cut to 2 of its 64 layers, 2 x 2,048
 # tokens a step, 3 steps: the plain Trainer, then the mesh Trainer on a
@@ -264,70 +216,6 @@ DIST_ARCH, DIST_CUT, DIST_PARAMS = "qwen2.5-32b", dict(n_layers=2), \
     2_532_350_976
 DIST_BATCH, DIST_SEQ, DIST_STEPS = 2, 2048, 3
 DIST_LOSS_RTOL = 1e-6          # mesh vs plain Trainer loss, relative
-# (b, h, kv, sq, sk, hd, causal, window, softcap)
-# B5 at the shapes the served paths give it, by path: recurrentgemma-9b's
-# local attention ([serve]), qwen2-moe's prefill, whisper-large-v3's
-# encoder over 1,500 frames and its decoder's self attention, the encdec
-# cross attention no config reaches, llama-3.2-vision's GQA self and
-# cross attention; each is checked in [model-kernels] and timed in
-# [timing] beside SDPA
-ATTN_SERVED = {
-    "serve": (4, 16, 1, 4000, 4000, 256, True, 2048, 0.0),
-    "qwen2-moe": (4, 16, 16, 4000, 4000, 128, True, 0, 0.0),
-    "whisper-encoder": (4, 20, 20, 1500, 1500, 64, False, 0, 0.0),
-    "whisper-decoder": (4, 20, 20, 384, 384, 64, True, 0, 0.0),
-    "whisper-encdec-cross": (4, 20, 20, 384, 1500, 64, False, 0, 0.0),
-    "vision-self": (4, 64, 8, 1024, 1024, 128, True, 0, 0.0),
-    "vision-cross": (4, 64, 8, 1024, 1601, 128, False, 0, 0.0),
-    "qwen2.5-train": (2, 40, 8, 2048, 2048, 128, True, 0, 0.0),  # [dist]
-}
-# the served shapes B5 also takes in bf16 (its own kernel,
-# attention_bf16.cu): every one; [serve-bf16] drives whisper's two
-ATTN_BF16 = tuple(ATTN_SERVED)
-ATTN_CASES = tuple(ATTN_SERVED.values()) + (
-    (1, 4, 4, 333, 333, 64, True, 0, 0.0),        # MHA
-    (2, 8, 2, 517, 517, 128, True, 100, 30.0),    # GQA
-    (1, 8, 1, 129, 129, 256, False, 0, 0.0),      # MQA
-    (2, 4, 2, 200, 200, 128, False, 50, 30.0),
-    (1, 4, 1, 45, 300, 64, False, 0, 0.0),        # sq < sk
-    (3, 6, 3, 1000, 1000, 64, True, 256, 30.0),
-    (1, 1, 1, 1, 1, 64, True, 0, 0.0),
-    # hd 256 with sq/sk not multiples of the 16-key tile or the 128-row
-    # query tile, the window's edge inside a tile
-    (1, 16, 1, 1000, 1000, 256, True, 333, 30.0),
-    (2, 4, 2, 77, 1001, 256, False, 0, 30.0),     # sq < sk
-    (1, 8, 2, 250, 250, 256, True, 17, 0.0))      # GQA, window < tile
-# (b, s, w, h0); the first two are the serving shape of the RG-LRU layers
-# s not a multiple of the 32-step stage, w not a multiple of the 32-channel
-# block (16-byte copies at w % 4 == 0, 4-byte ones otherwise)
-SCAN_CASES = ((4, 4000, 4096, True), (4, 4000, 4096, False),
-              (2, 1, 33, True), (3, 77, 100, False), (1, 4096, 31, True),
-              (2, 4001, 4100, True), (1, 33, 4097, False))
-# (b, s, h, p, n, g, chunk, initial state); the first two are the serving
-# shape of mamba2-130m's SSD layers, the others edge cases: s = 1, s
-# around the kernel's 256-row chunk (255, 256, 257, 513) with and without
-# a state, s < chunk, g = 2 and g = h, p not a multiple of 16 or of 4,
-# two p slices, and every state size the kernel takes
-SSD_CASES = ((4, 16000, 24, 64, 128, 1, 256, True),
-             (4, 16000, 24, 64, 128, 1, 256, False),
-             (2, 1, 24, 64, 128, 1, 256, True),
-             (2, 255, 8, 64, 128, 1, 256, True),
-             (2, 257, 8, 64, 128, 1, 256, False),
-             (3, 100, 6, 64, 128, 1, 256, True),
-             (2, 300, 4, 64, 128, 2, 256, True),
-             (3, 77, 8, 16, 16, 1, 16, True),
-             (1, 130, 3, 40, 32, 3, 64, True),
-             (1, 70, 2, 8, 256, 1, 32, True),
-             (1, 65, 2, 64, 64, 1, 64, False),
-             (2, 255, 8, 64, 128, 1, 256, False),
-             (2, 256, 8, 64, 128, 1, 256, True),
-             (2, 256, 8, 64, 128, 1, 256, False),
-             (2, 257, 8, 64, 128, 1, 256, True),
-             (2, 513, 8, 64, 128, 1, 256, True),
-             (2, 513, 8, 64, 128, 1, 256, False),
-             (1, 600, 4, 40, 256, 2, 256, True),
-             (1, 300, 2, 6, 32, 1, 64, True))
-SSD_SEQ_CASE = 6               # the SSD_CASES entry also held against the oracle
 ANALYTICS_CU = "src/repro_torch/csrc/analytics_kernels.cu"
 MODEL_CU = "src/repro_torch/csrc/model_kernels.cu"
 SSM_CU = "src/repro_torch/csrc/ssm_kernels.cu"
@@ -352,6 +240,12 @@ KERNELS = {   # name -> (source, TPU kernel it replaces: reference file:line)
 }
 MODEL_KERNELS = ("flash_attention", "rglru_scan", "ssd_scan",
                  "flash_attention_bf16", "ssd_scan_bf16")
+# the served run whose launches a model kernel's row of the kernels line
+# reads: the one at the shape [timing] times it at
+LAUNCHED_IN = {"flash_attention": "serve", "rglru_scan": "serve",
+               "ssd_scan": "serve-ssm", "moe_experts_decode": "serve-moe",
+               "flash_attention_bf16": "serve-bf16",
+               "ssd_scan_bf16": "serve-bf16"}
 # the kernel a wrapper launches on bf16 inputs, by its f32 kernel's name
 BF16_KERNELS = {"flash_attention": "flash_attention_bf16",
                 "ssd_scan": "ssd_scan_bf16"}
@@ -470,265 +364,8 @@ def log_tensor_core_sass(ext):
 
 
 # ---------------------------------------------------------------------------
-# phase 2: each kernel against its plain version
+# phase 2: timing at the main path's shapes
 # ---------------------------------------------------------------------------
-
-class Checker:
-    """Compares kernel with plain results and keeps the worst error."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.err = {k: 0.0 for k in KERNELS}
-        self.cases = {k: 0 for k in KERNELS}
-
-    def same(self, name, what, got, want, op, abs_sum=None):
-        torch = self.torch
-        self.cases[name] += 1
-        if got.shape != want.shape or got.dtype != want.dtype:
-            fail(f"{name} {what}: {got.dtype}{tuple(got.shape)} vs plain "
-                 f"{want.dtype}{tuple(want.shape)}")
-        if got.numel() == 0:
-            return
-        if got.dtype == torch.float32:
-            both_inf = torch.isinf(got) & (got == want)
-            diff = torch.where(both_inf, torch.zeros_like(got),
-                               (got - want).abs())
-            err = float(diff.max())
-            if op == "sum":
-                ok = bool((diff <= F32_SUM_RTOL * abs_sum + 1e-6).all())
-            else:
-                ok = err == 0.0
-        else:
-            err = float((got.long() - want.long()).abs().max())
-            ok = err == 0.0
-        self.err[name] = max(self.err[name], err)
-        if not ok:
-            fail(f"{name} {what}: kernel and plain differ (max abs "
-                 f"error {err})")
-
-
-def phase_kernels(torch, K, col, dev):
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    chk = Checker(torch)
-
-    def data(n, n_seg):
-        ids = torch.randint(0, n_seg, (n,), generator=gen, device=dev,
-                            dtype=torch.int32)
-        drop = torch.rand((n,), generator=gen, device=dev) < 0.05
-        ids = torch.where(drop, torch.full_like(ids, -1), ids)
-        cols = {
-            0: ids.abs(),
-            1: torch.randint(0, 100, (n,), generator=gen, device=dev,
-                             dtype=torch.int32),
-            2: torch.randint(-500, 500, (n,), generator=gen, device=dev,
-                             dtype=torch.int32),
-            3: torch.randn((n,), generator=gen, device=dev),
-        }
-        return ids, cols
-
-    preds = [
-        (col(1) >= 75).to_spec(),
-        (((col(2) % 7) == 3) | ~(col(1) < 50)).to_spec(),   # %, ~ on bool
-        ((col(2) / 3) > 10.5).to_spec(),                    # int / -> f32
-        None,
-        (col(1) > 1000).to_spec(),                          # rejects all
-    ]
-    int_values = [col(2).to_spec(), (col(2) % -7).to_spec(),
-                  (~col(0)).to_spec()]                      # ~ on int
-    f32_values = [(col(3) * 0.5 + col(2) / 7).to_spec(),
-                  ((col(3) % 0.75) - col(1)).to_spec()]
-
-    def program(pred, value, out_dtype):
-        used = sorted(K.spec_columns(pred) | K.spec_columns(value))
-        kinds = tuple((i, "F" if i == 3 else "I") for i in used)
-        prog = K.compile_specs(
-            json.dumps(pred, sort_keys=True) if pred else "",
-            json.dumps(value, sort_keys=True) if value else "", kinds,
-            out_dtype)
-        return prog, used
-
-    case = 0
-    for n in CHECK_ROWS:
-        for n_seg in CHECK_SEGS:
-            ids, cols = data(n, n_seg)
-            for op in OPS:
-                for dt in (torch.int32, torch.float32):
-                    case += 1
-                    pred = preds[case % len(preds)]
-                    vals = int_values if dt == torch.int32 else f32_values
-                    value = vals[case % len(vals)]
-                    prog, used = program(pred, value, str(dt).split(".")[1])
-                    ts = [cols[i] for i in used]
-                    what = (f"rows={n} segs={n_seg} op={op} {dt} "
-                            f"pred={pred} value={value}")
-                    got = K.fused_filter_aggregate_tensor(ts, prog, ids,
-                                                          n_seg, op, dt)
-                    want = K.fused_filter_aggregate_plain(ts, prog, ids,
-                                                          n_seg, op, dt)
-                    abs_sum = None
-                    if op == "sum" and dt == torch.float32:
-                        val = K._run_program_plain(
-                            prog.code[prog.n_pred:], prog, ts).abs()
-                        keep = ids >= 0
-                        if prog.n_pred:
-                            keep &= K._run_program_plain(
-                                prog.code[:prog.n_pred], prog, ts) != 0
-                        abs_sum = K.segment_reduce_plain(
-                            torch.broadcast_to(val, ids.shape).contiguous(),
-                            torch.where(keep, ids, -1), n_seg, "sum")
-                    chk.same("fused_filter_aggregate", what + " acc",
-                             got[0], want[0], op, abs_sum)
-                    chk.same("fused_filter_aggregate", what + " cnt",
-                             got[1], want[1], "count")
-
-                    v = cols[2] if dt == torch.int32 else cols[3]
-                    got = K.segment_reduce_tensor(v, ids, n_seg, op)
-                    want = K.segment_reduce_plain(v, ids, n_seg, op)
-                    abs_sum = (K.segment_reduce_plain(v.abs(), ids, n_seg,
-                                                      "sum")
-                               if dt == torch.float32 else None)
-                    chk.same("segment_reduce", f"rows={n} segs={n_seg} "
-                             f"op={op} {dt}", got, want, op, abs_sum)
-
-    agg_edges(torch, K, chk, gen, dev, data, program, preds, int_values,
-              f32_values)
-
-    # B3 takes a block per window of 1,024 elements or more, a warp
-    # below: both sides of that threshold, windows and slides that are not
-    # multiples of 4, and more than 65,535 windows
-    windows = [(ROWS, WINDOW, WINDOW), (ROWS, WINDOW, 1024),
-               (1025, 64, 17), (4096, 4096, 4096), (1023, 8, 3),
-               (ROWS, 1024, 1024), (ROWS, 1023, 1023), (100_003, 1031, 13),
-               (ROWS, 8, 4), (300_000, 2048, 3)]
-    nan_cases = 0
-    for n, w, s in windows:
-        _, cols = data(n, 1)
-        for op in OPS:
-            for v in (cols[2], cols[3]):
-                got = K.window_reduce_tensor(v, w, s, op)
-                want = K.window_reduce_plain(v, w, s, op)
-                abs_sum = (K.window_reduce_plain(v.abs(), w, s, "sum")
-                           if v.dtype == torch.float32 else None)
-                chk.same("window_reduce", f"n={n} window={w} slide={s} "
-                         f"op={op} {v.dtype}", got, want, op, abs_sum)
-        # f32 min/max with NaNs in about one window in ten: equal to plain,
-        # NaN where plain has NaN
-        v = cols[3].clone()
-        v[torch.rand((n,), generator=gen, device=dev) < 0.1 / w] = \
-            float("nan")
-        for op in ("min", "max"):
-            got = K.window_reduce_tensor(v, w, s, op)
-            want = K.window_reduce_plain(v, w, s, op)
-            try:
-                torch.testing.assert_close(got, want, rtol=0, atol=0,
-                                           equal_nan=True)
-            except AssertionError as e:
-                fail(f"window_reduce n={n} window={w} slide={s} op={op} "
-                     f"with NaNs: kernel and plain differ: {e}")
-            nan_cases += 1
-            chk.cases["window_reduce"] += 1
-    # a sequence shorter than one window emits nothing, as in window_reduce
-    short = K.window_reduce(cols[2][:100].cpu().numpy(), 128, device=dev)
-    if short.shape != (0,) or short.dtype.name != "float32":
-        fail(f"window_reduce on a short sequence gave {short!r}")
-    torch.cuda.synchronize()
-    log(f"[kernels] kernel == plain on the card: {chk.cases} cases; "
-        f"max abs error {chk.err} (f32 sums within {F32_SUM_RTOL} x "
-        f"sum|v|; ints and f32 min/max exact; window_reduce windows "
-        f"{windows} (n, window, slide), {nan_cases} of its cases f32 "
-        f"min/max over values with NaNs, equal with equal_nan)")
-    return chk
-
-
-def agg_edges(torch, K, chk, gen, dev, data, program, preds, int_values,
-              f32_values):
-    """B1 and B2 at their design's thresholds (AGG_CASES), with every row
-    in one segment, f32 min/max over NaNs, and f32 sums run three times
-    at 1 and 32 segments (a table a thread): the same bits (ROADMAP
-    C4)."""
-    def both(ids, cols, n_seg, what, ops=OPS, dts=(torch.int32,
-                                                   torch.float32)):
-        for op in ops:
-            for dt in dts:
-                pred = preds[0] if dt == torch.int32 else preds[1]
-                value = (int_values[0] if dt == torch.int32
-                         else f32_values[0])
-                prog, used = program(pred, value, str(dt).split(".")[1])
-                ts = [cols[i] for i in used]
-                got = K.fused_filter_aggregate_tensor(ts, prog, ids, n_seg,
-                                                      op, dt)
-                want = K.fused_filter_aggregate_plain(ts, prog, ids, n_seg,
-                                                      op, dt)
-                abs_sum = None
-                if op == "sum" and dt == torch.float32:
-                    val = K._run_program_plain(prog.code[prog.n_pred:],
-                                               prog, ts).abs()
-                    keep = K._run_program_plain(prog.code[:prog.n_pred],
-                                                prog, ts) != 0
-                    abs_sum = K.segment_reduce_plain(
-                        val.contiguous(), torch.where(keep, ids, -1), n_seg,
-                        "sum")
-                same_nan(chk, "fused_filter_aggregate", f"{what} op={op} "
-                         f"{dt} acc", got[0], want[0], op, abs_sum)
-                chk.same("fused_filter_aggregate", f"{what} op={op} {dt} "
-                         f"cnt", got[1], want[1], "count")
-                v = cols[2] if dt == torch.int32 else cols[3]
-                got = K.segment_reduce_tensor(v, ids, n_seg, op)
-                want = K.segment_reduce_plain(v, ids, n_seg, op)
-                abs_sum = (K.segment_reduce_plain(v.abs().nan_to_num(0.0),
-                                                  ids, n_seg, "sum")
-                           if dt == torch.float32 else None)
-                same_nan(chk, "segment_reduce", f"{what} op={op} {dt}", got,
-                         want, op, abs_sum)
-
-    for n, n_seg, one in AGG_CASES:
-        ids, cols = data(n, n_seg)
-        if one:                        # every row in one segment
-            ids = torch.full_like(ids, 7 % n_seg)
-        both(ids, cols, n_seg, f"rows={n} segs={n_seg}"
-             + (" one segment" if one else ""))
-    for n_seg in (32, 33, KEYS, 8193):
-        ids, cols = data(70_000, n_seg)
-        cols[3][torch.rand((70_000,), generator=gen, device=dev)
-                < 2.0 / n_seg] = float("nan")
-        both(ids, cols, n_seg, f"rows=70000 segs={n_seg} with NaNs",
-             ops=("min", "max"), dts=(torch.float32,))
-    for n_seg in (1, BINS):            # f32 sums in thread tables
-        ids, cols = data(ROWS, n_seg)
-        prog, used = program(preds[1], f32_values[0], "float32")
-        ts = [cols[i] for i in used]
-        b1 = [K.fused_filter_aggregate_tensor(ts, prog, ids, n_seg, "sum",
-                                              torch.float32)[0]
-              for _ in range(3)]
-        b2 = [K.segment_reduce_tensor(cols[3], ids, n_seg, "sum")
-              for _ in range(3)]
-        for name, runs in (("fused_filter_aggregate", b1),
-                           ("segment_reduce", b2)):
-            if not all(torch.equal(runs[0], r) for r in runs[1:]):
-                fail(f"{name} f32 sum at rows={ROWS} segs={n_seg} changed "
-                     f"its bits between runs")
-    log(f"[kernels] B1/B2 at their thresholds (rows, segs, one segment): "
-        f"{AGG_CASES}; f32 min/max with NaNs equal with equal_nan at segs "
-        f"32, 33, {KEYS}, 8193; f32 sums the same bits over 3 runs at "
-        f"rows={ROWS} segs 1 and {BINS}")
-
-
-def same_nan(chk, name, what, got, want, op, abs_sum):
-    """chk.same, with NaN where plain has NaN (f32 min/max, and f32 sums
-    of a segment holding a NaN)."""
-    torch = chk.torch
-    nan = torch.isnan(want) if want.dtype == torch.float32 else None
-    if nan is None or not bool(nan.any()):
-        chk.same(name, what, got, want, op, abs_sum)
-        return
-    if not torch.equal(torch.isnan(got), nan):
-        fail(f"{name} {what}: NaN where plain has none, or none where it "
-             f"has NaN")
-    keep = ~nan
-    chk.same(name, what, got[keep], want[keep], op,
-             None if abs_sum is None else abs_sum[keep])
-
 
 def heat_inputs(torch, gen, dev, hist, nobj, weights):
     """(hist, nobj) decay factors in [0, 1] with exact 0s and 1s, and
@@ -755,50 +392,6 @@ def histories(torch, gen, dev, n, hist, now):
     age = gaps.flip(1).cumsum(1).flip(1)        # newest access is youngest
     ts = (now - age) * mask
     return ts.cpu().numpy(), mask.cpu().numpy()
-
-
-def phase_heat(torch, H, chk, dev):
-    """[heat] B4 against its plain version (bit for bit: both round the
-    multiply and the add separately), and heat_scores on the card
-    against the CPU and the numpy closed form."""
-    import numpy as np
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(4)
-    for hist, nobj in HEAT_SHAPES + ((HEAT_HIST, HEAT_OBJS),):
-        for weights in ("random", "zero"):
-            a, x = heat_inputs(torch, gen, dev, hist, nobj, weights)
-            got = H.heat_scan(a, x, device=dev)
-            want = H.heat_scan_plain(a, x)
-            chk.cases["heat_scan"] += 1
-            err = float((got - want).abs().max())
-            chk.err["heat_scan"] = max(chk.err["heat_scan"], err)
-            if not torch.allclose(got, want, rtol=1e-6, atol=0.0):
-                fail(f"heat_scan hist={hist} nobj={nobj} {weights}: kernel "
-                     f"and plain differ (max abs error {err})")
-    now = 1.7e9
-    ts, mask = histories(torch, gen, dev, 5000, HEAT_HIST, now)
-    mask[:100] = 0.0                             # empty histories
-    ts[:100] = 0.0
-    w = np.random.default_rng(0).uniform(0.5, 4.0, ts.shape)
-    for weights in (None, w):
-        got = H.heat_scores(ts, mask, now, 60.0, weights=weights, device=dev)
-        cpu = H.heat_scores(ts, mask, now, 60.0, weights=weights,
-                            device="cpu")
-        ref = H.heat_scores_ref(ts, mask, now, 60.0, weights=weights)
-        if not (np.allclose(got, cpu, rtol=1e-6, atol=0.0)
-                and np.allclose(got, ref, rtol=1e-5, atol=1e-12)
-                and (got[:100] == 0.0).all()):
-            fail("heat_scores on the card disagrees with the CPU or the "
-                 "numpy closed form")
-    if H.heat_scores(ts[:0], mask[:0], now, device=dev).shape != (0,):
-        fail("heat_scores with no objects must return shape (0,)")
-    torch.cuda.synchronize()
-    log(f"[heat] kernel == plain on the card: {chk.cases['heat_scan']} "
-        f"cases over (hist, nobj) {list(HEAT_SHAPES)} and "
-        f"({HEAT_HIST}, {HEAT_OBJS}); max abs error "
-        f"{chk.err['heat_scan']}; heat_scores cuda == cpu == closed form "
-        f"(rtol 1e-5) on 5000 objects with 100 empty histories, weighted "
-        f"and not, and on 0 objects")
 
 
 def attn_inputs(torch, gen, dev, b, h, kv, sq, sk, hd):
@@ -832,222 +425,6 @@ def ssd_inputs(torch, gen, dev, b, s, h, p, n, g, with_state):
             r(b, s, g, n, scale=0.5), s0)
 
 
-def ssd_error(got, want, dims):
-    """(max |got - want|, the largest |got - want| / the (batch, head)'s
-    max |want|); ``dims`` are the axes reduced per (batch, head)."""
-    diff = (got - want).abs()
-    scale = want.abs().amax(dim=dims, keepdim=True).clamp_min(1e-30)
-    return float(diff.max()), float((diff / scale).amax())
-
-
-def phase_model_kernels(torch, KA, KR, KS, chk, dev):
-    """[model-kernels] B5, B6 and B7 against their plain versions on the
-    card: B7 bit for bit (both round the multiply and the add
-    separately), B5 within ATTN_RTOL of each query row's largest |o|
-    (f32 products summed in another order than the plain matmuls), B6's
-    y and final state within SSD_RTOL of each (batch, head)'s largest
-    |value| (split-TF32 products and f64 cumsums against the plain
-    version's f32 matmuls and cumsums: the same function, other
-    roundings), and at one small shape within SSD_SEQ_RTOL of the
-    sequential oracle."""
-    from repro_torch.models.ssm import ssd_reference
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(13)
-    worst_rel = 0.0
-    for b, h, kv, sq, sk, hd, causal, window, cap in ATTN_CASES:
-        q, k, v = attn_inputs(torch, gen, dev, b, h, kv, sq, sk, hd)
-        kw = dict(scale=hd ** -0.5, causal=causal, window=window,
-                  softcap=cap)
-        got = KA.flash_attention_kernel(q, k, v, **kw)
-        want = KA.flash_attention_plain(q, k, v, **kw)
-        chk.cases["flash_attention"] += 1
-        what = (f"flash_attention b={b} h={h} kv={kv} sq={sq} sk={sk} "
-                f"hd={hd} causal={causal} window={window} softcap={cap}")
-        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-            fail(f"{what}: shape {tuple(got.shape)} or non-finite output")
-        diff = (got - want).abs()
-        row = want.abs().amax(-1, keepdim=True)
-        chk.err["flash_attention"] = max(chk.err["flash_attention"],
-                                         float(diff.max()))
-        worst_rel = max(worst_rel, float((diff / row.clamp_min(
-            1e-30)).max()))
-        if not bool((diff <= ATTN_RTOL * row).all()):
-            fail(f"{what}: kernel and plain differ (max abs error "
-                 f"{float(diff.max())})")
-        del q, k, v, got, want, diff
-    for b, s_, w, with_h0 in SCAN_CASES:
-        a, x, h0 = scan_inputs(torch, gen, dev, b, s_, w, with_h0)
-        got = KR.rglru_scan(a, x, h0)
-        want = KR.rglru_scan_plain(a, x, h0)
-        chk.cases["rglru_scan"] += 1
-        err = float((got - want).abs().max())
-        chk.err["rglru_scan"] = max(chk.err["rglru_scan"], err)
-        if not torch.equal(got, want):
-            fail(f"rglru_scan b={b} s={s_} w={w} h0={with_h0}: kernel and "
-                 f"plain differ (max abs error {err})")
-    ssd_rel, ssd_worst, seq_rel = 0.0, "", 0.0
-    for i, (b, s_, h, p, n, g, chunk, with_s0) in enumerate(SSD_CASES):
-        args = ssd_inputs(torch, gen, dev, b, s_, h, p, n, g, with_s0)
-        got = KS.ssd_scan(*args[:5], chunk=chunk, initial_state=args[5])
-        wants = [("plain", KS.ssd_chunked(*args[:5], chunk,
-                                          initial_state=args[5]),
-                  SSD_RTOL)]
-        if i == SSD_SEQ_CASE:
-            wants.append(("ssd_reference", ssd_reference(*args), SSD_SEQ_RTOL))
-        chk.cases["ssd_scan"] += 1
-        what = (f"ssd_scan b={b} s={s_} h={h} p={p} n={n} g={g} "
-                f"chunk={chunk} initial_state={with_s0}")
-        for name, want, rtol in wants:
-            for part, dims, x, w in (("y", (1, 3), got[0], want[0]),
-                                     ("final state", (2, 3), got[1],
-                                      want[1])):
-                if x.shape != w.shape or not bool(torch.isfinite(x).all()):
-                    fail(f"{what}: {part} of shape {tuple(x.shape)} or "
-                         f"non-finite")
-                err, rel = ssd_error(x, w, dims)
-                if name == "plain":
-                    chk.err["ssd_scan"] = max(chk.err["ssd_scan"], err)
-                    if rel > ssd_rel:
-                        ssd_rel, ssd_worst = rel, f"{part} at {what}"
-                else:
-                    seq_rel = max(seq_rel, rel)
-                if not rel <= rtol:
-                    fail(f"{what}: kernel and {name} {part} differ by "
-                         f"{rel:.3e} of the (batch, head)'s max (limit "
-                         f"{rtol}; max abs error {err})")
-        del args, got, wants
-    bf16 = bf16_wrappers(torch, KA, KS, chk, gen, dev)
-    moe_rel = moe_decode_checks(torch, chk, dev)
-    torch.cuda.synchronize()
-    log(f"[model-kernels] kernel == plain on the card: flash_attention "
-        f"{chk.cases['flash_attention']} cases (MHA/GQA/MQA, window 0 and "
-        f">0, softcap 0 and 30, causal and not, unaligned sq/sk, hd "
-        f"64/128/256, window edges inside a key tile), max abs error "
-        f"{chk.err['flash_attention']}, max error / row max |o| "
-        f"{worst_rel:.3e} (limit {ATTN_RTOL}); "
-        f"rglru_scan {chk.cases['rglru_scan']} cases bit for bit (with and "
-        f"without h0, s=1, s and w not multiples of 32, w of 4); ssd_scan "
-        f"{chk.cases['ssd_scan']} cases (serving shape with and without a "
-        f"state, s=1, s 255/256/257/513 with and without a state, g=2 "
-        f"and g=h, p 6/8/16/40/64, n 16-256), max abs "
-        f"error {chk.err['ssd_scan']}, max error / (batch, head) max "
-        f"{ssd_rel:.3e} (limit {SSD_RTOL}; {ssd_worst}), against "
-        f"ssd_reference at "
-        f"SSD_CASES[{SSD_SEQ_CASE}] {seq_rel:.3e} (limit {SSD_SEQ_RTOL})")
-    log(f"[model-kernels] on bf16 inputs, the bf16 kernels "
-        f"(attention_bf16.cu, ssd_bf16.cu; no f32 launch) at every "
-        f"ATTN_CASES shape ({chk.cases['flash_attention_bf16']} cases) and "
-        f"every SSD_CASES shape with and without a state "
-        f"({chk.cases['ssd_scan_bf16']}), the bf16 output against the plain "
-        f"version's f32 result on the same values, within the f32 limit "
-        f"of the row's or (batch, head)'s max plus 2^-8 of |value| (the "
-        f"state within the f32 limit): " + "; ".join(
-            f"{name} max abs error {err:.3e}, max error / max "
-            f"{rel:.3e}" for name, (err, rel) in bf16.items()))
-    log(f"[model-kernels] moe_experts_decode == plain at qwen2-moe's "
-        f"decode shape (E 60, d 2,048, f 1,408), batches {MOE_DECODE_CHECK} "
-        f"f32 and {MOE_DECODE_CHECK[1]} bf16 "
-        f"({chk.cases['moe_experts_decode']} cases; one launch a call, "
-        f"equal bits twice, empty slots 0): max "
-        f"abs error f32 {chk.err['moe_experts_decode']:.3e}, max error / "
-        f"max |y| " + ", ".join(f"{k} {v:.3e} (limit {MOE_DECODE_RTOL[k]})"
-                                for k, v in moe_rel.items()))
-
-
-def bf16_wrappers(torch, KA, KS, chk, gen, dev):
-    """B5 at every ``ATTN_CASES`` shape and B6 at every ``SSD_CASES``
-    shape, with and without a state, on bf16 inputs (x, B, C in bf16;
-    dt, a_log and the state f32, as the models give them): each call
-    launches the bf16 kernel once and the f32 one never; each output in
-    the plain version's dtype (bf16 o and y, f32 state) and within the
-    f32 check's limit (``ATTN_RTOL`` of the row's largest |o|,
-    ``SSD_RTOL`` of the (batch, head)'s) plus one bf16 rounding, 2^-8 of
-    |value|, of the plain version's f32 result on the same values; the
-    state within ``SSD_RTOL``.  -> {name: (max abs error, max error /
-    the row's or (batch, head)'s max)}."""
-    from repro_torch import _ext
-
-    def launched_once(name, what):
-        others = {k: n for k, n in _ext.LAUNCHES.items() if n and k != name}
-        if _ext.LAUNCHES[name] != 1 or others:
-            fail(f"{what}: launched {dict(_ext.LAUNCHES)}, expected {name} "
-                 f"once and nothing else")
-
-    out, worst = {}, 0.0
-    for b, h, kv, sq, sk, hd, causal, window, cap in ATTN_CASES:
-        q, k, v = (t.bfloat16() for t in attn_inputs(
-            torch, gen, dev, b, h, kv, sq, sk, hd))
-        kw = dict(scale=hd ** -0.5, causal=causal, window=window,
-                  softcap=cap)
-        what = (f"flash_attention on bf16 inputs b={b} h={h} kv={kv} "
-                f"sq={sq} sk={sk} hd={hd} causal={causal} window={window} "
-                f"softcap={cap}")
-        _ext.reset_launch_counts()
-        got = KA.flash_attention_kernel(q, k, v, **kw)
-        launched_once("flash_attention_bf16", what)
-        want = KA.flash_attention_plain(q.float(), k.float(), v.float(),
-                                        **kw)
-        if got.dtype != torch.bfloat16 or got.shape != want.shape or \
-                not bool(torch.isfinite(got).all()):
-            fail(f"{what}: {got.dtype} {tuple(got.shape)} or non-finite")
-        err = (got.float() - want).abs()
-        row = want.abs().amax(-1, keepdim=True)
-        chk.cases["flash_attention_bf16"] += 1
-        chk.err["flash_attention_bf16"] = max(
-            chk.err["flash_attention_bf16"], float(err.max()))
-        worst = max(worst, float((err / row.clamp_min(1e-30)).max()))
-        if not bool((err <= ATTN_RTOL * row + 2.0 ** -8 * want.abs()).all()):
-            fail(f"{what}: kernel and plain differ by more than "
-                 f"{ATTN_RTOL} of the row's max plus 2^-8 of |o| (max abs "
-                 f"error {float(err.max())})")
-        del q, k, v, got, want, err, row
-    out["B5"] = (chk.err["flash_attention_bf16"], worst)
-    worst_y = worst_s = 0.0
-    for with_state in (True, False):
-        for b, s_, h, p, n, g, chunk, _ in SSD_CASES:
-            args = list(ssd_inputs(torch, gen, dev, b, s_, h, p, n, g,
-                                   with_state))
-            for j in (0, 3, 4):         # x, B, C; dt, a_log and the state f32
-                args[j] = args[j].bfloat16()
-            what = (f"ssd_scan on bf16 x, B, C b={b} s={s_} h={h} p={p} "
-                    f"n={n} g={g} initial_state={with_state}")
-            _ext.reset_launch_counts()
-            y, final = KS.ssd_scan(*args[:5], chunk=chunk,
-                                   initial_state=args[5])
-            launched_once("ssd_scan_bf16", what)
-            wy, wf = KS.ssd_chunked(*(t.float() for t in args[:5]), chunk,
-                                    initial_state=args[5])
-            if (y.dtype, final.dtype) != (torch.bfloat16, torch.float32) or \
-                    y.shape != wy.shape or final.shape != wf.shape or \
-                    not bool(torch.isfinite(y).all()
-                             & torch.isfinite(final).all()):
-                fail(f"{what}: y {y.dtype}, state {final.dtype}, or "
-                     f"non-finite")
-            err = (y.float() - wy).abs()
-            scale = wy.abs().amax(dim=(1, 3), keepdim=True)
-            ferr, frel = ssd_error(final, wf, (2, 3))
-            chk.cases["ssd_scan_bf16"] += 1
-            chk.err["ssd_scan_bf16"] = max(chk.err["ssd_scan_bf16"],
-                                           float(err.max()), ferr)
-            worst_y = max(worst_y, float((err / scale.clamp_min(1e-30)
-                                          ).max()))
-            worst_s = max(worst_s, frel)
-            if not bool((err <= SSD_RTOL * scale + 2.0 ** -8 * wy.abs()
-                         ).all()) or not frel <= SSD_RTOL:
-                fail(f"{what}: y beyond {SSD_RTOL} of the (batch, head)'s "
-                     f"max plus 2^-8 of |y| (max abs error "
-                     f"{float(err.max())}), or the state {frel:.3e} of its "
-                     f"max")
-            del args, y, final, wy, wf, err, scale
-    out["B6 y"] = (chk.err["ssd_scan_bf16"], worst_y)
-    out["B6 state"] = (chk.err["ssd_scan_bf16"], worst_s)
-    return out
-
-
-# ---------------------------------------------------------------------------
-# timing at the main path's shapes
-# ---------------------------------------------------------------------------
-
 def device_ms(torch, fn, reps=10, host=False):
     """Mean device time of ``fn`` with the 50 MB L2 flushed before each
     run (the main path's inputs arrive fresh from the host).  The card
@@ -1074,6 +451,17 @@ def device_ms(torch, fn, reps=10, host=False):
     return total / reps
 
 
+def held(name, got, want, limit=0.0):
+    """The largest |got - want| of a kernel's output against its plain
+    version's on the same inputs; fail() where it passes ``limit`` (a
+    number or a tensor that broadcasts; 0 is bit for bit)."""
+    err = (got.double() - want.double()).abs()
+    if got.shape != want.shape or not bool((err <= limit).all()):
+        fail(f"[timing] {name}: the kernel departs from its plain version "
+             f"by up to {float(err.max()):.3e}")
+    return float(err.max()) if err.numel() else 0.0
+
+
 def attn_pairs(sq, sk, causal, window):
     """(query, key) pairs the mask leaves visible, positions = indices."""
     n = 0
@@ -1082,21 +470,6 @@ def attn_pairs(sq, sk, causal, window):
         lo = max(0, i - window + 1) if window > 0 else 0
         n += max(0, hi - lo)
     return n
-
-
-def ssd_flops(b, s, h, p, n, chunk):
-    """Operations of the chunked SSD scan at ``chunk``, causal pairs only
-    (as B5's visible pairs): per chunk of L rows, L(L+1)/2 pairs x (2n
-    for C.B and 2p for the gated product with x), plus 2 x 2 L n p for
-    y_off and the state update.  The form is exact at any chunk length
-    and its work a row, (L+1)/2 (2n + 2p) + 4np, grows with L, so the
-    least work of the function is at chunk 1, the step-by-step
-    recurrence; B6's bound is counted there."""
-    total = 0
-    for c0 in range(0, s, chunk):
-        L = min(chunk, s - c0)
-        total += L * (L + 1) // 2 * (2 * n + 2 * p) + 4 * L * n * p
-    return b * h * total
 
 
 def moe_decode_params(torch, dev):
@@ -1123,48 +496,6 @@ def moe_decode_case(torch, dev, cfg, params, b, dtype="float32"):
     return p, moe._dispatch(x.to(dt), tok_idx), weight[0] != 0
 
 
-def moe_decode_checks(torch, chk, dev):
-    """[model-kernels] the slot-skipping expert kernel against its plain
-    version at qwen2-moe's decode shape, at the batches of
-    ``MOE_DECODE_CHECK`` in f32 and the second in bf16: one launch a
-    call, the same bits from a second call, the same number of experts
-    read, empty slots 0, within ``MOE_DECODE_RTOL`` of the largest |y|.
-    -> the worst error / max by dtype."""
-    from repro_torch import _ext
-    from repro_torch.models import moe
-    name = "moe_experts_decode"
-    cfg, params = moe_decode_params(torch, dev)
-    worst = {}
-    for b, dtype in [(b, "float32") for b in MOE_DECODE_CHECK] + [
-            (MOE_DECODE_CHECK[1], "bfloat16")]:
-        p, xd, valid = moe_decode_case(torch, dev, cfg, params, b, dtype)
-        ws = [p[k] for k in ("w_gate", "w_up", "w_down")]
-        what = f"{name} b={b} C={xd.shape[1]} {dtype}"
-        _ext.reset_launch_counts()
-        got, read = moe.expert_ffn_decode(xd, *ws, valid, cfg.act,
-                                          max_kept=b * cfg.top_k)
-        if _ext.LAUNCHES[name] != 1:
-            fail(f"{what}: launched {dict(_ext.LAUNCHES)}")
-        again, _ = moe.expert_ffn_decode(xd, *ws, valid, cfg.act,
-                                         max_kept=b * cfg.top_k)
-        want, want_read = moe.expert_ffn_decode_plain(xd, *ws, valid, cfg.act)
-        chk.cases[name] += 1
-        err = float((got.float() - want.float()).abs().max())
-        rel = err / max(float(want.float().abs().max()), 1e-30)
-        if dtype == "float32":
-            chk.err[name] = max(chk.err[name], err)
-        worst[dtype] = max(worst.get(dtype, 0.0), rel)
-        if not torch.equal(got, again):
-            fail(f"{what}: two calls gave other bits")
-        if int(read) != int(want_read) or not bool((got[~valid] == 0).all()):
-            fail(f"{what}: read {int(read)} experts (plain {int(want_read)}) "
-                 f"or wrote an empty slot")
-        if not rel <= MOE_DECODE_RTOL[dtype]:
-            fail(f"{what}: kernel and plain differ by {rel:.3e} of the "
-                 f"largest |y| (limit {MOE_DECODE_RTOL[dtype]})")
-    return worst
-
-
 def moe_decode_timing(torch, dev):
     """[timing] the slot-skipping expert kernel at qwen2-moe's decode shape
     (batch 1, the kernels line's row, and 4; f32 and, at batch 1, bf16)
@@ -1183,7 +514,13 @@ def moe_decode_timing(torch, dev):
         ws = [p[k] for k in ("w_gate", "w_up", "w_down")]
         e, c, d = xd.shape
         kept, width = int(valid.any(-1).sum()), xd.element_size()
+        got = moe.expert_ffn_decode(xd, *ws, valid, cfg.act,
+                                    max_kept=b * cfg.top_k)[0]
+        want = moe.expert_ffn_decode_plain(xd, *ws, valid, cfg.act)[0]
+        rtol = 1e-5 if dtype == "float32" else 2e-2    # of the largest |y|
         out[name] = dict(
+            max_abs_err=held(name, got, want,
+                             rtol * float(want.float().abs().max())),
             ms=device_ms(torch, lambda: moe.expert_ffn_decode(
                 xd, *ws, valid, cfg.act, max_kept=b * cfg.top_k)),
             plain_ms=device_ms(torch, lambda: moe.expert_ffn_decode_plain(
@@ -1193,7 +530,7 @@ def moe_decode_timing(torch, dev):
                                  + e * c * d),
             shape=f"E={e} C={c} d={d} f={cfg.d_expert} batch {b}, {kept} "
             f"experts kept, {dtype}; library = bmm over all {e} experts")
-        del p, xd, valid, ws
+        del p, xd, valid, ws, got, want
     for b in MOE_DECODE_SWEEP:
         p, xd, valid = moe_decode_case(torch, dev, cfg, params, b)
         ws = [p[k] for k in ("w_gate", "w_up", "w_down")]
@@ -1215,8 +552,15 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     fused pass, B2 as query (c)'s histogram count, B3 as query (d)'s
     window max (one partition each), B4 as one heat refresh of 262,144
     tracked objects, B5 and B7 as one local-attention and one RG-LRU
-    layer of the [serve] prefill, B6 as one SSD layer of the
-    [serve-ssm] prefill."""
+    layer of the [serve] prefill, B6 as one SSD layer of mamba2-130m
+    serving 16,000 prompt tokens.  Bytes and peaks, and B6's operations,
+    are counted as the benchmark counts them (``sagebench/counts.py``).
+    Each kernel's output is held once to its plain version's (``held``)
+    at the limits of ``tests/test_torch_cuda.py``, which lists the
+    served shapes."""
+    from sagebench.counts import HBM_BYTES_PER_S, PEAK_FLOPS, ssd_flops
+    sys.path.append(str(ROOT / "tests"))
+    from test_torch_cuda import ATTN_SERVED, SCAN_SERVED, SSD_SERVED
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
@@ -1238,6 +582,9 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     # 32-byte sectors of the value column holding a survivor: what a
     # read of the survivors' values moves at the least
     sectors = int(keep.view(-1, 8).any(dim=1).sum())
+    # f32 sums within 1e-4 of the kept rows' sum of |v|, the rest equal
+    abs_sum = K.segment_reduce_plain(reading.abs().float(),
+                                     torch.where(keep, key, -1), KEYS, "sum")
     b1_shapes = {}
     for q, (spec, op, dt, ts) in {
             "a_mean": (value, "sum", torch.float32, [quality, reading]),
@@ -1248,6 +595,13 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
                                str(dt).split(".")[1])
         b1 = (lambda prog=prog, ts=ts, op=op, dt=dt:
               K.fused_filter_aggregate_tensor(ts, prog, key, KEYS, op, dt))
+        plain = (lambda prog=prog, ts=ts, op=op, dt=dt:
+                 K.fused_filter_aggregate_plain(ts, prog, key, KEYS, op, dt))
+        (acc, cnt), (pacc, pcnt) = b1(), plain()
+        name = f"fused_filter_aggregate {q}"
+        err = max(held(name, cnt, pcnt), held(
+            name, acc, pacc,
+            1e-4 * abs_sum + 1e-6 if dt == torch.float32 else 0.0))
         # ids and the predicate column for every row, the value column for
         # the survivors (by rows, or by the 32-byte sectors that hold one),
         # acc + cnt out
@@ -1256,12 +610,11 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
             ms=device_ms(torch, b1), host_ms=device_ms(torch, b1, host=True),
             bound_bytes=rows_bytes + (4 * survivors if spec else 0),
             sector_bytes=rows_bytes + (32 * sectors if spec else 0),
-            plain_ms=device_ms(torch, lambda prog=prog, ts=ts, op=op, dt=dt:
-                               K.fused_filter_aggregate_plain(
-                                   ts, prog, key, KEYS, op, dt)))
+            plain_ms=device_ms(torch, plain), max_abs_err=err)
     a = b1_shapes["a_mean"]
     out["fused_filter_aggregate"] = dict(
         ms=a["ms"], plain_ms=a["plain_ms"], bound_bytes=a["bound_bytes"],
+        max_abs_err=a["max_abs_err"],
         host_ms=a["host_ms"], library_ms=None, library_host_ms=None,
         shapes=b1_shapes, shape=f"rows={ROWS} segs={KEYS} sum f32 "
         f"(query a)")
@@ -1285,10 +638,11 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     b2 = lambda: K.segment_reduce_tensor(ones, ids, BINS, "count")  # noqa: E731
     b2_lib = lambda: lib_out.scatter_reduce_(  # noqa: E731
         0, dump, ones, reduce="sum")
+    b2_plain = lambda: K.segment_reduce_plain(  # noqa: E731
+        ones, ids, BINS, "count")
     out["segment_reduce"] = dict(
-        ms=device_ms(torch, b2),
-        plain_ms=device_ms(torch, lambda: K.segment_reduce_plain(
-            ones, ids, BINS, "count")),
+        max_abs_err=held("segment_reduce", b2(), b2_plain()),
+        ms=device_ms(torch, b2), plain_ms=device_ms(torch, b2_plain),
         # count reads only the ids (the values are never loaded)
         bound_bytes=4 * ROWS + 4 * BINS,
         library_ms=device_ms(torch, b2_lib),
@@ -1300,10 +654,11 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     nw = ROWS // WINDOW
     b3 = lambda: K.window_reduce_tensor(reading, WINDOW, WINDOW, "max")
     b3_lib = lambda: reading.unfold(0, WINDOW, WINDOW).amax(1)
+    b3_plain = lambda: K.window_reduce_plain(  # noqa: E731
+        reading, WINDOW, WINDOW, "max")
     out["window_reduce"] = dict(
-        ms=device_ms(torch, b3),
-        plain_ms=device_ms(torch, lambda: K.window_reduce_plain(
-            reading, WINDOW, WINDOW, "max")),
+        max_abs_err=held("window_reduce", b3(), b3_plain()),
+        ms=device_ms(torch, b3), plain_ms=device_ms(torch, b3_plain),
         bound_bytes=4 * ROWS + 4 * nw,
         library_ms=device_ms(torch, b3_lib),
         # per call with the host's work in it, as query (d) pays it
@@ -1315,6 +670,8 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     # no one PyTorch call computes a first-order linear recurrence
     a, x = heat_inputs(torch, gen, dev, HEAT_HIST, HEAT_OBJS, "random")
     out["heat_scan"] = dict(
+        max_abs_err=held("heat_scan", H.heat_scan(a, x, device=dev),
+                         H.heat_scan_plain(a, x)),
         ms=device_ms(torch, lambda: H.heat_scan(a, x, device=dev)),
         plain_ms=device_ms(torch, lambda: H.heat_scan_plain(a, x)),
         bound_bytes=2 * 4 * HEAT_HIST * HEAT_OBJS + 4 * HEAT_OBJS,
@@ -1333,7 +690,10 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     k16, v16 = (t.expand(b, h, sk, hd).contiguous() for t in (k, v))
     pairs = attn_pairs(sq, sk, causal, window)
     flops = 4 * hd * pairs * b * h            # q.k and p.v, 2 each
+    want = KA.flash_attention_plain(q, k, v, **kw)
     out["flash_attention"] = dict(
+        max_abs_err=held("flash_attention", KA.flash_attention_kernel(
+            q, k, v, **kw), want, 1e-4 * want.abs().amax(-1, keepdim=True)),
         ms=device_ms(torch, lambda: KA.flash_attention_kernel(q, k, v, **kw)),
         plain_ms=device_ms(torch, lambda: KA.flash_attention_plain(
             q, k, v, **kw)),
@@ -1342,19 +702,20 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
         bound_bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
         # f32 operands take the tensor cores' TF32 rate; the kernel's
         # three products each (3xTF32) are its own cost, as B6's
-        bound_flops=flops, flops_rate=TF32_FLOPS,
+        bound_flops=flops, flops_rate=PEAK_FLOPS["float32"],
         shape=f"b={b} h={h} kv={kv} s={sq} hd={hd} "
         f"window={window} f32 ({pairs} visible pairs per head)")
-    del q, k, v, k16, v16, mask
+    del q, k, v, k16, v16, mask, want
 
-    # B5 at the other served shapes (ATTN_SERVED) in f32, then at
-    # ATTN_BF16's on bf16 inputs (the configs' default dtype, through
-    # attention_bf16.cu; the bound reads and writes 2-byte elements at the
+    # B5 at the other served shapes (ATTN_SERVED) in f32, then at every
+    # one on bf16 inputs (the configs' default dtype, through
+    # attention_bf16.cu, held to the plain version's f32 result on the
+    # same values plus one bf16 rounding of |o|; the bound reads and writes 2-byte elements at the
     # bf16 tensor-core rate); the yardstick is SDPA's causal or unmasked
     # form over K/V expanded to every head, or at [serve]'s shape its
     # window-causal boolean mask
     served = [(name, False) for name in ATTN_SERVED if name != "serve"]
-    for name, bf16 in served + [(name, True) for name in ATTN_BF16]:
+    for name, bf16 in served + [(name, True) for name in ATTN_SERVED]:
         b, h, kv, sq, sk, hd, causal, window, cap = ATTN_SERVED[name]
         q, k, v = attn_inputs(torch, gen, dev, b, h, kv, sq, sk, hd)
         if bf16:
@@ -1369,7 +730,15 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
             sdpa = dict(is_causal=causal)
         pairs = attn_pairs(sq, sk, causal, window)
         size = 2 if bf16 else 4
-        out[f"flash_attention@{name}" + ("@bf16" if bf16 else "")] = dict(
+        want = KA.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        **kw)
+        limit = 1e-4 * want.abs().amax(-1, keepdim=True)
+        if bf16:        # and one bf16 rounding of the output
+            limit = limit + 2.0 ** -8 * want.abs()
+        row = f"flash_attention@{name}" + ("@bf16" if bf16 else "")
+        out[row] = dict(
+            max_abs_err=held(row, KA.flash_attention_kernel(q, k, v, **kw),
+                             want, limit),
             ms=device_ms(torch, lambda: KA.flash_attention_kernel(
                 q, k, v, **kw)),
             plain_ms=device_ms(torch, lambda: KA.flash_attention_plain(
@@ -1379,55 +748,75 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
                     q, kx, vx, scale=kw["scale"], **sdpa)),
             bound_bytes=size * (2 * q.numel() + k.numel() + v.numel()),
             bound_flops=4 * hd * pairs * b * h,
-            flops_rate=BF16_FLOPS if bf16 else TF32_FLOPS,
+            flops_rate=PEAK_FLOPS["bfloat16" if bf16 else "float32"],
             shape=f"b={b} h={h} kv={kv} sq={sq} sk={sk} hd={hd} "
             f"{'causal' if causal else 'non-causal'}"
             f"{f' window={window}' if window else ''}, "
             f"{'bf16' if bf16 else 'f32'} ({pairs} visible pairs per head)")
-        del q, k, v, kx, vx, sdpa
+        del q, k, v, kx, vx, sdpa, want, limit
     del qi, ki
     # the bf16 kernel's row of the kernels line: whisper's encoder, where
     # [serve-bf16] spends most of its B5 time
     out["flash_attention_bf16"] = out["flash_attention@whisper-encoder@bf16"]
 
-    b, s_, h, p, n, g, chunk, with_s0 = SSD_CASES[0]
+    b, s_, h, p, n, g, chunk, with_s0 = SSD_SERVED
     args = list(ssd_inputs(torch, gen, dev, b, s_, h, p, n, g, with_s0))
     for j in (0, 3, 4):             # x, B, C; dt, a_log and the state f32
         args[j] = args[j].bfloat16()
     io = sum(t.numel() * t.element_size() for t in args if t is not None) \
         + 2 * b * s_ * h * p + 4 * b * h * p * n   # + y (bf16), the state
+    # y within 1e-4 of the (batch, head)'s max plus one bf16 rounding of
+    # the plain version's f32 result on the same values, the state 1e-4
+    y, final = KS.ssd_scan(*args[:5], chunk=chunk, initial_state=args[5])
+    wy, wf = KS.ssd_chunked(*(t.float() for t in args[:5]), chunk,
+                            initial_state=args[5])
     out["ssd_scan@bf16"] = dict(
+        max_abs_err=max(
+            held("ssd_scan@bf16 y", y, wy, 1e-4 * wy.abs().amax(
+                dim=(1, 3), keepdim=True) + 2.0 ** -8 * wy.abs()),
+            held("ssd_scan@bf16 state", final, wf,
+                 1e-4 * wf.abs().amax(dim=(2, 3), keepdim=True))),
         ms=device_ms(torch, lambda: KS.ssd_scan(
             *args[:5], chunk=chunk, initial_state=args[5])),
         plain_ms=device_ms(torch, lambda: KS.ssd_chunked(
             *args[:5], chunk, initial_state=args[5])),
         library_ms=None, bound_bytes=io,
-        bound_flops=ssd_flops(b, s_, h, p, n, 1), flops_rate=BF16_FLOPS,
+        bound_flops=ssd_flops(b, s_, h, p, n),
+        flops_rate=PEAK_FLOPS["bfloat16"],
         shape=f"b={b} s={s_} h={h} p={p} n={n} g={g} x, B, C bf16, "
-        f"state f32, counted at chunk 1")
+        f"state f32, counted step by step")
     out["ssd_scan_bf16"] = out["ssd_scan@bf16"]
     log_ssd_launches(torch, lambda: KS.ssd_scan(
         *args[:5], chunk=chunk, initial_state=args[5]), "ssd_scan@bf16")
-    del args
+    del args, y, final, wy, wf
 
     # B7: one RG-LRU layer of the [serve] prefill (h0 from the cache); no
     # one PyTorch call computes a linear recurrence
-    b, s_, w, with_h0 = SCAN_CASES[0]
+    b, s_, w, with_h0 = SCAN_SERVED
     a, x, h0 = scan_inputs(torch, gen, dev, b, s_, w, with_h0)
     out["rglru_scan"] = dict(
+        max_abs_err=held("rglru_scan", KR.rglru_scan(a, x, h0),
+                         KR.rglru_scan_plain(a, x, h0)),
         ms=device_ms(torch, lambda: KR.rglru_scan(a, x, h0)),
         plain_ms=device_ms(torch, lambda: KR.rglru_scan_plain(a, x, h0)),
         library_ms=None, bound_bytes=4 * (3 * a.numel() + h0.numel()),
         shape=f"b={b} s={s_} w={w} f32")
     del a, x, h0
 
-    # B6: one SSD layer of the [serve-ssm] prefill (initial state from the
+    # B6: one SSD layer of mamba2-130m's prefill (initial state from the
     # cache); no one PyTorch call computes the SSD scan
-    b, s_, h, p, n, g, chunk, with_s0 = SSD_CASES[0]
+    b, s_, h, p, n, g, chunk, with_s0 = SSD_SERVED
     args = ssd_inputs(torch, gen, dev, b, s_, h, p, n, g, with_s0)
     io = sum(t.numel() for t in args if t is not None) \
         + b * s_ * h * p + b * h * p * n          # + y and the final state
+    # y and the state within 1e-4 of each (batch, head)'s largest |value|
+    got = KS.ssd_scan(*args[:5], chunk=chunk, initial_state=args[5])
+    want = KS.ssd_chunked(*args[:5], chunk, initial_state=args[5])
     out["ssd_scan"] = dict(
+        max_abs_err=max(held(f"ssd_scan {part}", gt, w, 1e-4 * w.abs().amax(
+            dim=dims, keepdim=True)) for part, gt, w, dims in (
+                ("y", got[0], want[0], (1, 3)),
+                ("state", got[1], want[1], (2, 3)))),
         ms=device_ms(torch, lambda: KS.ssd_scan(
             *args[:5], chunk=chunk, initial_state=args[5])),
         plain_ms=device_ms(torch, lambda: KS.ssd_chunked(
@@ -1435,14 +824,13 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
         library_ms=None, bound_bytes=4 * io,
         # f32 operands take the tensor cores' TF32 rate; the kernel's
         # three products each (3xTF32) are its own cost, not the function's
-        bound_flops=ssd_flops(b, s_, h, p, n, 1), flops_rate=TF32_FLOPS,
-        shape=f"b={b} s={s_} h={h} p={p} n={n} g={g} f32, counted at "
-        f"chunk 1; in 64-row chunks the form does "
-        f"{ssd_flops(b, s_, h, p, n, 64)} FLOP, the reference's chunk "
-        f"{chunk} {ssd_flops(b, s_, h, p, n, chunk)}")
+        bound_flops=ssd_flops(b, s_, h, p, n),
+        flops_rate=PEAK_FLOPS["float32"],
+        shape=f"b={b} s={s_} h={h} p={p} n={n} g={g} f32, counted step "
+        f"by step")
     log_ssd_launches(torch, lambda: KS.ssd_scan(
         *args[:5], chunk=chunk, initial_state=args[5]), "ssd_scan")
-    del args
+    del args, got, want
     out.update(moe_decode_timing(torch, dev))
 
     for name, r in out.items():
@@ -1455,14 +843,13 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
         r["bound_by"] = "operations" if ops_ms > bytes_ms else "bytes"
         extra = ""
         if "bound_flops" in r:
+            tf32_ms = r["bound_flops"] / PEAK_FLOPS["float32"] * 1e3
             extra = (f"; {r['bound_flops']} FLOP at {rate:.4g}/s = "
                      f"{ops_ms:.4f} ms; at the f32 rate {F32_FLOPS:.3g}/s "
                      f"{r['bound_flops'] / F32_FLOPS * 1e3:.4f} ms, at the "
-                     f"TF32 tensor-core rate "
-                     f"{r['bound_flops'] / TF32_FLOPS * 1e3:.4f} ms, at "
-                     f"3xTF32 {r['bound_flops'] / TF32X3_FLOPS * 1e3:.4f} "
-                     f"ms; achieved {r['bound_flops'] / r['ms'] / 1e9:.2f} "
-                     f"TFLOP/s")
+                     f"TF32 tensor-core rate {tf32_ms:.4f} ms, at 3xTF32 "
+                     f"{3 * tf32_ms:.4f} ms; achieved "
+                     f"{r['bound_flops'] / r['ms'] / 1e9:.2f} TFLOP/s")
         else:
             extra = (f"; achieved {r['bound_bytes'] / r['ms'] / 1e6:.1f} "
                      f"GB/s")
@@ -2246,130 +1633,6 @@ def phase_compaction(torch, K, cl, svc, dev, spec_a):
     return launches
 
 
-MOE_STEPS = {"_route": "router", "_dispatch": "dispatch",
-             "_expert_ffn": "expert GEMMs", "_combine": "combine",
-             "_shared_experts": "shared experts"}
-
-
-def kernel_event_times(torch, run, scope="prefill"):
-    """Run ``run()`` with CUDA events around every B5, B6 and B7 wrapper
-    call the model layers make and around each step of the MoE block
-    (``MOE_STEPS``), inside the entry point ``scope`` of
-    ``repro_torch.models.model`` only (``prefill`` for the serve phases,
-    ``loss_fn`` for [train]); returns (run's value, ms summed per name,
-    calls timed per name)."""
-    from repro_torch.models import attention as MA
-    from repro_torch.models import model as MM
-    from repro_torch.models import moe as MO
-    from repro_torch.models import rglru as MR
-    from repro_torch.models import ssm as MS
-    targets = ((MA, "flash_attention"), (MR, "rglru_scan"),
-               (MS, "ssd_scan")) + tuple((MO, n) for n in MOE_STEPS)
-    saved = [getattr(mod, name) for mod, name in targets]
-    entry = getattr(MM, scope)
-    pairs = {name: [] for _, name in targets}
-    in_scope = [False]
-
-    def timed(name, fn):
-        def call(*a, **kw):
-            if not in_scope[0]:
-                return fn(*a, **kw)
-            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            s.record()
-            val = fn(*a, **kw)
-            e.record()
-            pairs[name].append((s, e))
-            return val
-        return call
-
-    def timed_entry(*a, **kw):
-        in_scope[0] = True
-        try:
-            return entry(*a, **kw)
-        finally:
-            in_scope[0] = False
-    try:
-        for (mod, name), fn in zip(targets, saved):
-            setattr(mod, name, timed(name, fn))
-        setattr(MM, scope, timed_entry)
-        value = run()
-    finally:
-        for (mod, name), fn in zip(targets, saved):
-            setattr(mod, name, fn)
-        setattr(MM, scope, entry)
-    torch.cuda.synchronize()
-    return (value, {n: sum(s.elapsed_time(e) for s, e in ps)
-                    for n, ps in pairs.items()},
-            {n: len(ps) for n, ps in pairs.items()})
-
-
-@contextlib.contextmanager
-def record_routes(store):
-    """Every ``moe._route`` call inside appends its (experts, slot) --
-    each token's experts and the slot it got in each, -1 if dropped --
-    to ``store``."""
-    from repro_torch.models import moe as MO
-    route = MO._route
-
-    def recording(*a, **kw):
-        val = route(*a, **kw)
-        store.append((val[2].clone(), val[3].clone()))
-        return val
-    MO._route = recording
-    try:
-        yield store
-    finally:
-        MO._route = route
-
-
-def route_flips(a, b):
-    """(token-layers whose expert choice or drop differs, token-layers)
-    between two runs' recorded routes, call by call."""
-    if len(a) != len(b):
-        fail(f"the two paths routed {len(a)} and {len(b)} times")
-    flips = total = 0
-    for (ea, sa), (eb, sb) in zip(a, b):
-        differ = (ea != eb).any(-1) | ((sa < 0) != (sb < 0)).any(-1)
-        flips += int(differ.sum())
-        total += differ.numel()
-    return flips, total
-
-
-def profile_decode(torch, step, n, tag="serve"):
-    """[serve] ``n`` decode steps under torch.profiler: wall ms per step
-    (host clock, synchronised), device ms per step (CUDA kernel self
-    time), kernels per step and the three costliest kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n):
-            step(i)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n
-    if dev_ms <= 0:
-        log(f"[{tag}] decode profile: the profiler saw no device time "
-            "(not measured)")
-        return
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:3]
-    log(f"[{tag}] decode profile ({n} steps, torch.profiler): wall "
-        f"{wall_ms:.3f} ms/step, device busy {dev_ms:.3f} ms/step = "
-        f"{dev_ms / wall_ms:.4f} of the wall, "
-        f"{sum(e.count for e in kern) / n:.0f} kernels/step; costliest: " +
-        "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f} "
-                  f"ms/step x{e.count // n}" for e in top))
-
-
-KERNEL_TAGS = {"flash_attention": "B5", "ssd_scan": "B6", "rglru_scan": "B7",
-               "flash_attention_bf16": "B5", "ssd_scan_bf16": "B6"}
-F32_NAMES = {bf: f32 for f32, bf in BF16_KERNELS.items()}
-
-
 def phase_serve(torch, ext, cfg, dev, *, tag="serve",
                 expect_params=SERVE_PARAMS, batch=SERVE_BATCH,
                 prompt=SERVE_PROMPT, gen=SERVE_GEN):
@@ -2397,7 +1660,7 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
     the model runs."""
     import numpy as np
     from repro_torch.core import FunctionShipper
-    from repro_torch.launch.serve import Server, graphs_decode
+    from repro_torch.launch.serve import Server
     from repro_torch.models import model as mdl
     from repro_torch.models.transformer import reads_memory, stack_kinds
     from repro_torch.tree import leaves
@@ -2455,22 +1718,14 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
                 f"{set_cross_gates(torch, srv.params)} cross layers set to "
                 f"{VISION_GATE} after the seeded init (they start at 0, "
                 f"where a cross layer is the identity)")
-        routes = ([], [])
         ext.reset_launch_counts()               # the served path starts here
-        with record_routes(routes[0]):
-            (out, stats), kms, _ = kernel_event_times(
-                torch, lambda: srv.generate(prompts, gen, extra=extra,
-                                            keep_logits=True))
+        out, stats = srv.generate(prompts, gen, extra=extra, keep_logits=True)
         launches = {k: ext.LAUNCHES[k] for k in MODEL_KERNELS}  # ends here
         # a graph's warm-up and capture launch the MoE's single-token
         # kernel; its replays do not count
         moe_decode = ext.LAUNCHES["moe_experts_decode"]
         peak = torch.cuda.max_memory_allocated(dev)
         srv.close()
-        graphed = graphs_decode(cfg, dev, extra)
-        if graphed:     # the capture's routing calls are no step's
-            routes[0][:] = [r for r in routes[0]
-                            if tuple(r[0].shape[:2]) == (batch, prompt)]
         if launches != want_launches:
             fail(f"[{tag}] one prefill launched {launches}, expected "
                  f"{want_launches}")
@@ -2486,20 +1741,12 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
                     batch, cfg.vocab_size) for x in logits):
             fail(f"[{tag}] tokens or logits of the wrong shape, or "
                  "non-finite logits")
-        prefill_ms = stats["prefill_s"] * 1e3
-        parts = [(KERNEL_TAGS[k], kms[F32_NAMES.get(k, k)]) for k in used]
-        if cfg.is_moe:
-            parts += [(f"MoE {MOE_STEPS[n]}", kms[n]) for n in MOE_STEPS]
-        rest = prefill_ms - sum(ms for _, ms in parts)
         log(f"[{tag}] kernel path: prefill {stats['prefill_s']:.3f} s "
             f"({batch * prompt / stats['prefill_s']:.1f} "
             f"prompt tok/s), decode {stats['decode_s']:.3f} s = "
             f"{stats['tok_per_s']:.2f} tok/s ({batch} x {gen}); "
-            f"launches in the prefill {json.dumps(launches)}; device ms "
-            + ", ".join(f"in {name} {ms:.3f} = {ms / prefill_ms:.4f}"
-                        for name, ms in parts)
-            + f" of the prefill, the rest {rest:.3f} = "
-            f"{rest / prefill_ms:.4f}; peak card memory {peak} B of "
+            f"launches in the prefill {json.dumps(launches)}; peak card "
+            f"memory {peak} B of "
             f"{torch.cuda.get_device_properties(dev).total_memory} B")
 
         # the token log, streamed into Clovis during decode
@@ -2518,26 +1765,15 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
         log(f"[{tag}] token log stream/tokens in container servelog: "
             f"{toks.nbytes} B equal to the generated tokens; in-storage "
             f"histogram (FunctionShipper) {np.asarray(hist.value)[:8]}...")
-        if graphed:
-            graph_check(torch, srv.params, cfg, dev, tag, prompts, out,
-                        max_len)
         if cfg.use_mla:
             del logits
-            tok = torch.from_numpy(out[:, -1:]).to(dev)
-            cache = mdl.init_decode_state(cfg, batch, max_len,
-                                          dtype=torch.float32, device=dev)
-            cache = mdl.prefill(srv.params, {"tokens": prompts}, cfg,
-                                cache)[1]
-            profile_decode(torch, lambda i: mdl.decode_step(
-                srv.params, tok, prompt + i, cfg, cache), PROFILE_STEPS, tag)
-            del cache
             mla_lossless_check(torch, srv.params, cfg, dev, tag)
         else:
             if cfg.is_encoder_decoder:
                 encoder_check(torch, ext, srv.params, cfg, dev, tag,
                               extra["frames"])
             plain_path(torch, srv.params, cfg, dev, tag, prompts, out,
-                       logits, routes, extra)
+                       logits, extra)
             if cfg.dtype == "bfloat16":
                 layer_check(torch, srv.params, cfg, dev, tag, prompts,
                             extra)
@@ -2555,33 +1791,6 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
         remove_store(root)
 
 
-def graph_check(torch, params, cfg, dev, tag, prompts, out, max_len):
-    """A Server that replayed its decode steps from a CUDA graph must have
-    served the greedy tokens of the eager loop that the graph replaced:
-    prefill through the kernels, then ``decode_step`` and argmax op by
-    op, on the same weights."""
-    import numpy as np
-    from repro_torch.models import model as mdl
-    batch, prompt = prompts.shape
-    cache = mdl.init_decode_state(
-        cfg, batch, max_len, device=dev,
-        dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
-    logits, cache = mdl.prefill(params, {"tokens": prompts}, cfg, cache)
-    toks = []
-    for i in range(out.shape[1]):
-        toks.append(logits.argmax(-1)[:, None])
-        logits, cache = mdl.decode_step(params, toks[-1], prompt + i, cfg,
-                                        cache)
-    eager = torch.cat(toks, 1).cpu().numpy()
-    del cache, logits
-    if not np.array_equal(eager, out):
-        fail(f"[{tag}] the graphed decode served other greedy tokens than "
-             f"the eager loop: {int((eager == out).sum())} of {out.size} "
-             "agree")
-    log(f"[{tag}] decode replayed from a CUDA graph: its {out.size} greedy "
-        "tokens equal an eager prefill + decode_step loop's")
-
-
 def rms_rel(a, b) -> float:
     """|a - b| / |b| over all elements (the RMS of the difference over
     the RMS of ``b``)."""
@@ -2589,15 +1798,12 @@ def rms_rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def plain_path(torch, params, cfg, dev, tag, prompts, out, logits, routes,
-               extra):
+def plain_path(torch, params, cfg, dev, tag, prompts, out, logits, extra):
     """The plain path (``use_kernels=False``) on the same weights:
     prefill, then decode fed the kernel path's tokens.  In f32 each
     step's logits must be within ``SERVE_LOGIT_RTOL`` of its largest
     |logit| and every greedy choice must agree (except a MoE model's,
-    whose routing can flip at a near-tie: C19).  For a MoE model the
-    two paths' routing choices (``routes``: the kernel path's, filled
-    here with the plain path's) are compared first.
+    whose routing can flip at a near-tie: C19).
 
     In bf16 the two paths round to bf16 after every op, and a rounding
     flipped by another f32 sum in B5 or B6 grows through the layers and
@@ -2613,46 +1819,33 @@ def plain_path(torch, params, cfg, dev, tag, prompts, out, logits, routes,
     bf16 = cfg.dtype == "bfloat16"
     torch.cuda.reset_peak_memory_stats(dev)
 
-    def run(cfg, record):
-        """-> (per-step logits, last cache, prefill s) of the plain path"""
+    def run(cfg):
+        """-> (per-step logits, prefill s) of the plain path"""
         cache = mdl.init_decode_state(
             cfg, batch, prompt + gen + 8, device=dev,
             dtype=torch.bfloat16 if cfg.dtype == "bfloat16"
             else torch.float32)
-        steps = []
-        with record_routes(record):
-            t0 = time.perf_counter()
-            lg, cache = mdl.prefill(params, {"tokens": prompts, **extra},
-                                    cfg, cache, use_kernels=False)
-            torch.cuda.synchronize(dev)
-            prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lg, cache = mdl.prefill(params, {"tokens": prompts, **extra}, cfg,
+                                cache, use_kernels=False)
+        torch.cuda.synchronize(dev)
+        prefill_s = time.perf_counter() - t0
+        steps = [lg[..., :cfg.vocab_real]]
+        for i in range(1, gen + 1):
+            lg, cache = mdl.decode_step(
+                params, torch.from_numpy(out[:, i - 1:i]), prompt + i - 1,
+                cfg, cache)
             steps.append(lg[..., :cfg.vocab_real])
-            for i in range(1, gen + 1):
-                lg, cache = mdl.decode_step(
-                    params, torch.from_numpy(out[:, i - 1:i]),
-                    prompt + i - 1, cfg, cache)
-                steps.append(lg[..., :cfg.vocab_real])
-        return steps, cache, prefill_s
+        return steps, prefill_s
 
     logits = [lg[..., :cfg.vocab_real] for lg in logits]
-    plain, cache, plain_s = run(cfg, routes[1])
+    plain, plain_s = run(cfg)
     rel = [float((logits[i] - plain[i]).abs().max())
            / float(plain[i].abs().max()) for i in range(gen + 1)]
     n_agree = sum(int((logits[i].argmax(-1) == plain[i].argmax(-1)).sum())
                   for i in range(gen + 1))
-    if cfg.is_moe:
-        n_pre = cfg.n_layers - cfg.n_dense_layers      # one prefill
-        pre = route_flips(routes[0][:n_pre], routes[1][:n_pre])
-        if len(routes[0]) > n_pre:
-            dec = route_flips(routes[0][n_pre:], routes[1][n_pre:])
-            dec = f"{dec[0]} of {dec[1]} in decode"
-        else:               # a graph replays decode past ``moe._route``
-            dec = "decode replayed from a CUDA graph (not recorded)"
-        log(f"[{tag}] routing, kernel path against plain path: expert "
-            f"choice or drop differs for {pre[0]} of {pre[1]} "
-            f"token-layers in the prefill; {dec}")
     if bf16:
-        f32 = run(cfg.scaled(dtype="float32"), [])[0]
+        f32 = run(cfg.scaled(dtype="float32"))[0]
         dist = {name: [rms_rel(a[i], b[i]) for i in range(gen + 1)]
                 for name, a, b in (("kernel - plain bf16", logits, plain),
                                    ("plain bf16 - f32", plain, f32),
@@ -2693,15 +1886,12 @@ def plain_path(torch, params, cfg, dev, tag, prompts, out, logits, routes,
         verdict = (f"max |kernel - plain| / max |logit| at prefill "
                    f"{rel[0]:.3e}, over the {gen} decode steps "
                    f"{max(rel[1:]):.3e} (limit {SERVE_LOGIT_RTOL})")
-    profile_decode(torch, lambda i: mdl.decode_step(
-        params, plain[-1].argmax(-1)[:, None], prompt + gen + i, cfg,
-        cache), PROFILE_STEPS, tag)
     log(f"[{tag}] plain path (use_kernels=False: the reference's dense "
         f"attention, log-depth scan and chunked SSD) on the same "
         f"weights: prefill {plain_s:.3f} s, peak card memory "
         f"{torch.cuda.max_memory_allocated(dev)} B; {verdict}; greedy "
         f"choices agree {n_agree}/{batch * (gen + 1)}"
-        + ("" if bf16 or cfg.is_moe else " (all must)"))
+        + ("" if bf16 else " (all must)"))
 
 
 def layer_check(torch, params, cfg, dev, tag, prompts, extra):
@@ -3047,55 +2237,7 @@ def same_bits(torch, tag, got, want):
             fail(f"[train] {tag}: leaf {n} differs")
 
 
-def b6_train_ms(torch, KS, dev, cfg, reps=5):
-    """B6 at the train shape: its y and final state held against
-    ``ssd_chunked`` on the same inputs within SSD_RTOL of each (batch,
-    head)'s largest |value| (fails on a miss), one launch's device time,
-    and one layer's backward (``ssd_chunked`` recomputed and
-    differentiated, as ``kernels.grad`` does) timed with CUDA events.
-    Returns (ms, backward ms, the worst error / (batch, head) max)."""
-    from repro_torch.models import ssm as MS
-    b, s = TRAIN_BATCH, TRAIN_SEQ
-    h, p, n = MS.n_ssm_heads(cfg), cfg.ssm_headdim, cfg.ssm_state
-    g = torch.Generator(device=dev)
-    g.manual_seed(0)
-    x = torch.randn((b, s, h, p), generator=g, device=dev)
-    dt = torch.rand((b, s, h), generator=g, device=dev) * 0.1
-    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
-    B, C = (torch.randn((b, s, cfg.ssm_ngroups, n), generator=g,
-                        device=dev) * 0.3 for _ in range(2))
-    got = KS.ssd_scan(x, dt, a_log, B, C, chunk=cfg.ssm_chunk)
-    want = KS.ssd_chunked(x, dt, a_log, B, C, cfg.ssm_chunk)
-    worst = 0.0
-    for part, dims, o, w in (("y", (1, 3), got[0], want[0]),
-                             ("final state", (2, 3), got[1], want[1])):
-        if o.shape != w.shape or not bool(torch.isfinite(o).all()):
-            fail(f"[train] B6's {part} at the train shape is of shape "
-                 f"{tuple(o.shape)} or non-finite")
-        err, rel = ssd_error(o, w, dims)
-        worst = max(worst, rel)
-        if not rel <= SSD_RTOL:
-            fail(f"[train] B6's {part} at the train shape differs from "
-                 f"ssd_chunked by {rel:.3e} of the (batch, head)'s max "
-                 f"(limit {SSD_RTOL}; max abs error {err})")
-    del got, want
-    fwd = device_ms(torch, lambda: KS.ssd_scan(x, dt, a_log, B, C,
-                                               chunk=cfg.ssm_chunk))
-    ins = [t.clone().requires_grad_(True) for t in (x, dt, a_log, B, C)]
-    gy = torch.randn((b, s, h, p), generator=g, device=dev)
-    total = 0.0
-    for _ in range(reps):
-        y, _ = KS.ssd_scan(*ins, chunk=cfg.ssm_chunk)
-        s_ev, e_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s_ev.record()
-        torch.autograd.grad(y, ins, gy)
-        e_ev.record()
-        e_ev.synchronize()
-        total += s_ev.elapsed_time(e_ev)
-    return fwd, total / reps, worst
-
-
-def phase_train(torch, ext, KS, dev, smi):
+def phase_train(torch, ext, dev):
     """[train] mamba2-130m at full width trained through the port's
     Trainer with checkpoint/restart through Clovis (see the module's
     docstring).  Returns B6's launches over the training steps."""
@@ -3105,9 +2247,7 @@ def phase_train(torch, ext, KS, dev, smi):
     from repro_torch.configs.base import RunConfig
     from repro_torch.data.pipeline import TokenLoader, build_synthetic_corpus
     from repro_torch.launch.train import Trainer
-    from repro_torch.models import model as mdl
-    from repro_torch.optim import adamw_update
-    from repro_torch.tree import leaves, unflatten
+    from repro_torch.tree import leaves
     cfg = get_config(TRAIN_ARCH).scaled(dtype="float32")
     run = RunConfig(arch=TRAIN_ARCH, remat="none", total_steps=TRAIN_STEPS,
                     warmup_steps=4, checkpoint_every=10,
@@ -3135,53 +2275,12 @@ def phase_train(torch, ext, KS, dev, smi):
             f"in 4 shards written to Clovis in {corpus_s:.3f} s; batch "
             f"{b} x {s} tokens a step")
 
-        # 1. one gradient, kernel path against the plain path
-        loader = TokenLoader(tr.clovis, batch=b, seq=s, start_step=10_000)
-        batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in next(loader).items()}
-        loader.close()
-        flat = leaves(params)
-        for t in flat:
-            t.requires_grad_(True)
-        got, peaks = {}, {}
-        for use in (True, False):
-            ext.reset_launch_counts()
-            torch.cuda.reset_peak_memory_stats(dev)
-            # the plain path recomputes each block in its backward: its
-            # ssd_chunked graphs for 24 layers at once would fill the card
-            loss, _ = mdl.loss_fn(params, batch, cfg, use_kernels=use,
-                                  remat="none" if use else "full")
-            got[use] = (loss.item(), torch.autograd.grad(loss, flat))
-            peaks[use] = torch.cuda.max_memory_allocated(dev)
-            if ext.LAUNCHES["ssd_scan"] != (n_layers if use else 0):
-                fail(f"[train] the gradient with use_kernels={use} "
-                     f"launched B6 {ext.LAUNCHES['ssd_scan']} times")
-        (lk, gk), (lp, gp) = got[True], got[False]
-        worst = max(float((k - q).abs().max()) / float(q.abs().max())
-                    for k, q in zip(gk, gp))
-        if not abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp):
-            fail(f"[train] kernel loss {lk} vs plain {lp}")
-        if not worst <= TRAIN_GRAD_RTOL:
-            fail(f"[train] kernel and plain gradients differ by {worst:.3e} "
-                 f"of a leaf's largest |g| (limit {TRAIN_GRAD_RTOL})")
-        log(f"[train] gradient check on one batch: loss kernel {lk:.7f} "
-            f"plain {lp:.7f} (rel {abs(lk - lp) / abs(lp):.3e}, limit "
-            f"{TRAIN_LOSS_RTOL}); max |g_kernel - g_plain| / max |g_plain| "
-            f"over {len(gk)} leaves {worst:.3e} (limit {TRAIN_GRAD_RTOL}); "
-            f"peak card memory kernel path {peaks[True]} B, plain path "
-            f"(remat full) {peaks[False]} B")
-        del got, gk, gp, batch
-
-        # 2. steps 1-20, stream checkpoints at 10 and 20
+        # 1. steps 1-20, stream checkpoints at 10 and 20
         loader = TokenLoader(tr.clovis, batch=b, seq=s)
         torch.cuda.reset_peak_memory_stats(dev)
         ext.reset_launch_counts()               # the train path starts here
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
         params, opt, hist = tr.train(TRAIN_RESTART, loader, params=params,
                                      opt_state=opt, log_every=1)
-        torch.cuda.synchronize(dev)
-        wall1 = time.perf_counter() - t0
         launches = ext.LAUNCHES["ssd_scan"]     # ends here
         loader.close()
         tr.ckpt.close()
@@ -3192,7 +2291,7 @@ def phase_train(torch, ext, KS, dev, smi):
         ckpt1 = [(i.step, i.strategy, round(i.seconds, 3))
                  for i in tr.ckpt.history]
 
-        # 3. a T1 device dies; HA repairs what it held
+        # 2. a T1 device dies; HA repairs what it held
         dev0 = tr.clovis.pools["t1_nvram"].devices[0]
         affected = len(tr.clovis.store.objects_on_device(dev0.name))
         t0 = time.perf_counter()
@@ -3206,7 +2305,7 @@ def phase_train(torch, ext, KS, dev, smi):
         del params, opt
         torch.cuda.empty_cache()
 
-        # 4. restart: a new Trainer on the same root
+        # 3. restart: a new Trainer on the same root
         tr2 = Trainer(cfg, run, root, device=dev)
         t0 = time.perf_counter()
         got = tr2.try_restore()
@@ -3223,16 +2322,12 @@ def phase_train(torch, ext, KS, dev, smi):
             f"of step {TRAIN_RESTART} ({len(saved)} leaves)")
         del saved
 
-        # 5. steps 21-40
+        # 4. steps 21-40
         loader = TokenLoader(tr2.clovis, batch=b, seq=s, start_step=step)
         ext.reset_launch_counts()               # the train path starts here
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
         params, opt, hist2 = tr2.train(TRAIN_STEPS, loader, start_step=step,
                                        params=params, opt_state=opt,
                                        log_every=1)
-        torch.cuda.synchronize(dev)
-        wall2 = time.perf_counter() - t0
         launches2 = ext.LAUNCHES["ssd_scan"]    # ends here
         loader.close()
         if launches2 != n_layers * (TRAIN_STEPS - step):
@@ -3240,7 +2335,7 @@ def phase_train(torch, ext, KS, dev, smi):
                  f"{launches2} times, expected {n_layers} a step")
         peak = torch.cuda.max_memory_allocated(dev)
 
-        # 6. the losses
+        # 5. the losses
         losses = [l for _, l in hist + hist2]
         if [st for st, _ in hist + hist2] != list(range(1, TRAIN_STEPS + 1)):
             fail("[train] the loss history skips steps")
@@ -3251,20 +2346,15 @@ def phase_train(torch, ext, KS, dev, smi):
             fail(f"[train] the loss did not fall: mean of steps 1-5 "
                  f"{first:.4f}, of steps {TRAIN_STEPS - 4}-{TRAIN_STEPS} "
                  f"{last:.4f}")
-        n_steps = TRAIN_STEPS
         log(f"[train] losses {json.dumps([round(l, 4) for l in losses])}; "
             f"mean of steps 1-5 {first:.4f}, of steps {TRAIN_STEPS - 4}-"
-            f"{TRAIN_STEPS} {last:.4f}; "
-            f"wall {wall1:.3f} s for steps 1-{TRAIN_RESTART} and "
-            f"{wall2:.3f} s for steps {TRAIN_RESTART + 1}-{TRAIN_STEPS} "
-            f"(stream checkpoints included) = "
-            f"{n_steps * b * s / (wall1 + wall2):.1f} tokens/s; B6 "
-            f"launches {launches} + {launches2} ({n_layers} a step); peak "
-            f"card memory {peak} B; checkpoints {ckpt1} + "
+            f"{TRAIN_STEPS} {last:.4f}; B6 launches {launches} + "
+            f"{launches2} ({n_layers} a step); peak card memory {peak} B; "
+            f"checkpoints {ckpt1} + "
             f"{[(i.step, i.strategy, round(i.seconds, 3)) for i in tr2.ckpt.history]}")
         tr2.ckpt.close()
 
-        # 7. one checkpoint of the whole state with each strategy
+        # 6. one checkpoint of the whole state with each strategy
         state = {"params": params, "opt": opt}
         want = host_snapshot(torch, state)
         for i, strategy in enumerate(("collective", "window", "stream")):
@@ -3285,105 +2375,17 @@ def phase_train(torch, ext, KS, dev, smi):
                 f"GB/s, restored to the card in {load_s:.3f} s = "
                 f"{info.bytes / load_s / 1e9:.3f} GB/s, equal bit for bit")
         del want
-
-        # 8. a step split into forward, backward and optimizer
-        loader = TokenLoader(tr2.clovis, batch=b, seq=s,
-                             start_step=TRAIN_STEPS)
-        flat = leaves(params)
-        split = []
-        for _ in range(TRAIN_TIMED_STEPS):
-            batch = {k: torch.from_numpy(v).to(dev)
-                     for k, v in next(loader).items()}
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            ev[0].record()
-            ext.reset_launch_counts()
-            (loss, _), kms, calls = kernel_event_times(
-                torch, lambda: mdl.loss_fn(params, batch, cfg),
-                scope="loss_fn")
-            ev[1].record()
-            if not calls["ssd_scan"] == ext.LAUNCHES["ssd_scan"] == n_layers:
-                fail(f"[train] the timed forward counted "
-                     f"{calls['ssd_scan']} B6 calls and "
-                     f"{ext.LAUNCHES['ssd_scan']} launches, expected "
-                     f"{n_layers}")
-            grads = torch.autograd.grad(loss, flat)
-            ev[2].record()
-            adamw_update(params, unflatten(params, grads), opt, run)
-            ev[3].record()
-            ev[3].synchronize()
-            split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)]
-                         + [kms["ssd_scan"], calls["ssd_scan"]])
-            del grads, loss
-        loader.close()
-        fwd, bwd, opt_ms, b6_in_fwd = (float(np.median([r[j] for r in split]))
-                                      for j in range(4))
-        if not b6_in_fwd > 0:
-            fail(f"[train] B6's time in the forward reads {b6_in_fwd} ms")
-        step_ms = fwd + bwd + opt_ms
-        b6_ms, b6_bwd_ms, b6_rel = b6_train_ms(torch, KS, dev, cfg)
-        log(f"[train] a step (median of {TRAIN_TIMED_STEPS}, CUDA events): "
-            f"forward {fwd:.3f} ms, backward {bwd:.3f} ms, optimizer "
-            f"{opt_ms:.3f} ms, total {step_ms:.3f} ms = "
-            f"{b * s / step_ms * 1e3:.1f} tokens/s; B6 in the forward "
-            f"{b6_in_fwd:.3f} ms ({split[0][4]} launches counted) = "
-            f"{b6_in_fwd / fwd:.4f} of it; B6 at the train shape (b {b}, s "
-            f"{s}, h {cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim}, p "
-            f"{cfg.ssm_headdim}, n {cfg.ssm_state}) {b6_ms:.4f} ms a launch "
-            f"(device), y and final state against ssd_chunked {b6_rel:.3e} "
-            f"of the (batch, head)'s max (limit {SSD_RTOL}), its recomputing backward {b6_bwd_ms:.3f} ms a layer "
-            f"= {n_layers * b6_bwd_ms / bwd:.4f} of the backward if "
-            f"{n_layers} layers; {smi}")
-        return {"ssd_scan": launches + launches2}, step_ms
+        return {"ssd_scan": launches + launches2}
     finally:
         remove_store(root)
 
 
-def count_step(torch, cfg, run, batch: int, seq: int):
-    """The FLOPs and bytes of one train step of ``cfg`` on one device,
-    counted on ``meta`` tensors (``launch.analysis.StepCounter``): the
-    kernels' plain versions stand in for B5/B6/B7, which are no aten
-    op."""
-    from repro_torch.launch.analysis import StepCounter
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import model as mdl
-    from repro_torch.optim import AdamWState
-    meta = torch.device("meta")
-    params = mdl.params_like(cfg)
-    opt = AdamWState(torch.zeros((), dtype=torch.int32),
-                     mdl.params_like(cfg), mdl.params_like(cfg))
-    data = {k: torch.empty((batch, seq), dtype=torch.int32, device=meta)
-            for k in ("tokens", "labels")}
-    with StepCounter() as c:
-        make_train_step(cfg, run)(params, opt, data)
-    return c.flops, c.bytes
-
-
-def roofline_line(tag, cfg, flops, bytes_, ms, tokens, smi):
-    """One line: counted and model FLOPs (6 N D, N without a lookup-only
-    embedding), bytes, the measured step, t_compute at f32's rate and
-    the model-FLOPs share of the step at that rate."""
-    from repro_torch.launch import analysis as AN
-    from repro_torch.models import model as mdl
-    n = mdl.count_params_analytic(cfg, active_only=True)
-    embed = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
-    model_flops = AN.model_flops_estimate(cfg, "train", tokens, 1, n, embed)
-    peak = AN.H100_SXM.peak("float32")
-    share = model_flops / (ms * 1e-3 * peak)
-    log(f"[roofline] {tag} {cfg.name}: counted {flops:.4e} FLOPs (the "
-        f"plain versions', on meta) = {flops / model_flops:.4f} x the "
-        f"model's 6 N D = {model_flops:.4e} (N {n - embed}, D {tokens}); "
-        f"bytes {bytes_:.4e}; measured step {ms:.3f} ms; t_compute "
-        f"{flops / peak * 1e3:.3f} ms at f32's {peak:.3g} FLOP/s; "
-        f"model-FLOPs share {share:.4f}; {smi}")
-    return share
-
-
-def phase_dist(torch, ext, dev, smi, train_ms):
+def phase_dist(torch, ext, dev):
     """[dist] qwen2.5-32b at full width, cut to 2 layers, through the
     plain Trainer and then the mesh Trainer on a world-size-1 NCCL 1 x 1
     mesh from the same seed on the same batches (equal losses, B5 two
-    launches a forward); the roofline of that step and of [train]'s; the
-    dry run of this cell against the state the card holds."""
+    launches a forward); the dry run of this cell against the state the
+    card holds."""
     import numpy as np
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -3483,7 +2485,6 @@ def phase_dist(torch, ext, dev, smi, train_ms):
         if not meshed["state"] == plain["state"] == dry_state:
             fail(f"[dist] state bytes: dry run {dry_state}, mesh Trainer "
                  f"{meshed['state']}, plain {plain['state']}")
-        step_ms = float(np.median(meshed["ms"]))
         log(f"[dist] {cfg.name} at full width cut to {cfg.n_layers} of 64 "
             f"layers: {DIST_PARAMS} f32 parameters; {b} x {s} tokens a "
             f"step, {DIST_STEPS} steps; plain Trainer losses "
@@ -3502,13 +2503,6 @@ def phase_dist(torch, ext, dev, smi, train_ms):
             f"card (equal byte for byte); torch.cuda.max_memory_allocated "
             f"{meshed['peak']} B over its {DIST_STEPS} steps (plain "
             f"Trainer {plain['peak']} B)")
-        roofline_line("[dist]", cfg, rep.flops_per_device,
-                      rep.bytes_per_device, step_ms, b * s, smi)
-        tcfg = get_config(TRAIN_ARCH).scaled(dtype="float32")
-        flops, bytes_ = count_step(torch, tcfg, RunConfig(remat="none"),
-                                   TRAIN_BATCH, TRAIN_SEQ)
-        roofline_line("[train]", tcfg, flops, bytes_, train_ms,
-                      TRAIN_BATCH * TRAIN_SEQ, smi)
         return {"flash_attention": meshed["launches"]}
     finally:
         if dist.is_initialized():
@@ -3546,11 +2540,8 @@ def main() -> int:
 
     smi = phase_card_and_build(torch, _ext)
     lap("build")
-    chk = phase_kernels(torch, K, col, dev)
-    phase_heat(torch, H, chk, dev)
-    phase_model_kernels(torch, KA, KR, KS, chk, dev)
     timing = phase_timing(torch, K, H, KA, KR, KS, col, dev)
-    lap("kernels, heat, model-kernels, timing")
+    lap("timing")
     phase_heat_split(torch, H, dev)
     lap("heat split")
     launches, per_query, main_values = phase_main_path(torch, K, col,
@@ -3571,48 +2562,39 @@ def main() -> int:
     lap("serving, compaction")
     edge = phase_edge(torch, K, col, dev, smi)
     lap("edge")
-    launches.update(phase_serve(
-        torch, _ext, get_config(SERVE_ARCH).scaled(dtype="float32"), dev))
-    lap("serve")
-    launches.update(phase_serve(
-        torch, _ext, get_config(SSM_ARCH).scaled(dtype="float32"), dev,
-        tag="serve-ssm", expect_params=SSM_PARAMS, batch=SSM_BATCH,
-        prompt=SSM_PROMPT, gen=SSM_GEN))
-    lap("serve-ssm")
-    launches.update(phase_serve(
-        torch, _ext, get_config(MOE_ARCH).scaled(dtype="float32"), dev,
-        tag="serve-moe", expect_params=MOE_PARAMS, batch=MOE_BATCH,
-        prompt=MOE_PROMPT, gen=MOE_GEN))
-    lap("serve-moe")
-    phase_serve(torch, _ext, get_config(MLA_ARCH).scaled(
-        dtype="float32", **MLA_CUT), dev, tag="serve-mla",
-        expect_params=MLA_PARAMS, batch=MLA_BATCH, prompt=MLA_PROMPT,
-        gen=MLA_GEN)
-    lap("serve-mla")
-    launches.update(phase_serve(
-        torch, _ext, get_config(WHISPER_ARCH).scaled(dtype="float32"), dev,
-        tag="serve-whisper", expect_params=WHISPER_PARAMS,
-        batch=WHISPER_BATCH, prompt=WHISPER_PROMPT, gen=WHISPER_GEN))
-    lap("serve-whisper")
-    launches.update(phase_serve(
-        torch, _ext, get_config(VISION_ARCH).scaled(
-            dtype="float32", **VISION_CUT), dev, tag="serve-vision",
-        expect_params=VISION_PARAMS, batch=VISION_BATCH,
-        prompt=VISION_PROMPT, gen=VISION_GEN))
-    lap("serve-vision")
+    runs = {}                           # a served run's launches, by tag
+
+    def serve(cfg, tag="serve", **kw):
+        runs.setdefault(tag, {}).update(
+            phase_serve(torch, _ext, cfg, dev, tag=tag, **kw))
+        lap(tag)
+
+    serve(get_config(SERVE_ARCH).scaled(dtype="float32"))
+    serve(get_config(SSM_ARCH).scaled(dtype="float32"), "serve-ssm",
+          expect_params=SSM_PARAMS, batch=SSM_BATCH, prompt=SSM_PROMPT,
+          gen=SSM_GEN)
+    serve(get_config(MOE_ARCH).scaled(dtype="float32"), "serve-moe",
+          expect_params=MOE_PARAMS, batch=MOE_BATCH, prompt=MOE_PROMPT,
+          gen=MOE_GEN)
+    serve(get_config(MLA_ARCH).scaled(dtype="float32", **MLA_CUT),
+          "serve-mla", expect_params=MLA_PARAMS, batch=MLA_BATCH,
+          prompt=MLA_PROMPT, gen=MLA_GEN)
+    serve(get_config(WHISPER_ARCH).scaled(dtype="float32"), "serve-whisper",
+          expect_params=WHISPER_PARAMS, batch=WHISPER_BATCH,
+          prompt=WHISPER_PROMPT, gen=WHISPER_GEN)
+    serve(get_config(VISION_ARCH).scaled(dtype="float32", **VISION_CUT),
+          "serve-vision", expect_params=VISION_PARAMS, batch=VISION_BATCH,
+          prompt=VISION_PROMPT, gen=VISION_GEN)
     # the configs' own default dtype, bf16 (C18)
-    launches.update(phase_serve(
-        torch, _ext, get_config(SSM_ARCH), dev, tag="serve-bf16",
-        expect_params=SSM_PARAMS, batch=SSM_BATCH, prompt=SSM_PROMPT,
-        gen=SSM_GEN))
-    launches.update(phase_serve(
-        torch, _ext, get_config(WHISPER_ARCH), dev, tag="serve-bf16",
-        expect_params=WHISPER_PARAMS, batch=WHISPER_BATCH,
-        prompt=WHISPER_PROMPT, gen=WHISPER_GEN))
-    lap("serve-bf16")
-    trained, train_ms = phase_train(torch, _ext, KS, dev, smi)
+    serve(get_config(SSM_ARCH), "serve-bf16", expect_params=SSM_PARAMS,
+          batch=SSM_BATCH, prompt=SSM_PROMPT, gen=SSM_GEN)
+    serve(get_config(WHISPER_ARCH), "serve-bf16",
+          expect_params=WHISPER_PARAMS, batch=WHISPER_BATCH,
+          prompt=WHISPER_PROMPT, gen=WHISPER_GEN)
+    launches.update({k: runs[tag][k] for k, tag in LAUNCHED_IN.items()})
+    trained = phase_train(torch, _ext, dev)
     lap("train")
-    distributed = phase_dist(torch, _ext, dev, smi, train_ms)
+    distributed = phase_dist(torch, _ext, dev)
     lap("dist")
 
     rows = []
@@ -3621,7 +2603,7 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": chk.err[name], "ms": t["ms"],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })

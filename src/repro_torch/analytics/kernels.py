@@ -15,7 +15,7 @@ Three layers per kernel:
   tensor it runs the plain version.  There is no other fallback;
 * the **plain PyTorch version** (``*_plain``): masks,
   ``scatter_reduce`` and ``unfold`` — the CPU path and, on the card,
-  the yardstick ``chip_smoke.py`` holds each kernel against.
+  the yardstick ``tests/test_torch_cuda.py`` holds each kernel against.
 
 Integer inputs reduce in int32 (exact, wrapping like ``np.add.at``);
 everything else in float32.  The fused pass compiles its predicate and

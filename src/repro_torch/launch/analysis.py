@@ -34,9 +34,7 @@ does instead (ROADMAP C24, C25):
     no aten op, so on the card they would count 0.  Count a step on the
     ``meta`` device instead: there the kernel wrappers take their plain
     versions (a ``meta`` tensor is no CUDA tensor), whose aten ops are
-    counted.  So a count is the plain versions' work, not the kernels':
-    ``chip_smoke.py`` prints the ratio of the counted FLOPs to 6 N D
-    beside the measured step.
+    counted.  So a count is the plain versions' work, not the kernels'.
 
 Peak rates are a ``Hardware`` record; ``H100_SXM`` (NVIDIA's data sheet,
 dense) is the default.  The port's GEMMs run in f32 without TF32, so an

@@ -45,8 +45,10 @@ whisper-large-v3 and llama-3.2-vision-90b take the stub frontends'
 embeddings, drawn after the prompts from the same numpy generator (seed
 0), as the reference's ``main`` draws them: ``frames`` (batch,
 encoder_seq, d) and ``image_embeds`` (batch, n_image_tokens, d).  On the
-card (the default device) drop ``--device cpu``; ``chip_smoke.py``'s
-``[serve*]`` phases serve the full-width models.
+card (the default device) drop ``--device cpu``.  The benchmark
+(``sagebench/``) serves mamba2-130m and qwen2-moe-a2.7b at full width;
+``chip_smoke.py``'s ``[serve*]`` phases serve the other models there, and
+those two at batch 4.
 """
 from __future__ import annotations
 

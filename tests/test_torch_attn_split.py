@@ -14,9 +14,10 @@ rounds the operands of its two products as the kernel does (``_mm`` of
 ``tests/test_torch_ssd_split.py``: B5 and B6 share the split).  Its exp is
 torch's; the kernel's (``__expf``, ex2.approx) is within ~2^-21 of it
 near 0, where the weights that matter lie, far inside the limit.  On normal q, k, v, as
-``chip_smoke.py`` draws them, it must stay within ``ATTN_RTOL`` (1e-4 of
-each query row's largest |o|, the limit ``chip_smoke.py`` holds the
-kernel to) of the reference's ``flash_attention_ref``; the same walk with
+``test_flash_attention_kernel_matches_plain`` (``tests/test_torch_cuda.py``)
+draws them, it must stay within ``ATTN_RTOL`` (1e-4 of each query row's
+largest |o|, the limit that card test holds the kernel to) of the
+reference's ``flash_attention_ref``; the same walk with
 plain TF32 operands must not, which is why the kernel splits them.
 """
 import jax.numpy as jnp

@@ -13,8 +13,10 @@ its key tiles (128 keys, 64 at hd 256) and ``_scan`` B6's chunked form
 from the entering state, cumsums of dt·A in f64); both round their
 outputs once to bf16, as the kernels write them.
 
-On bf16 values drawn as ``chip_smoke.py`` draws them, the emulations must
-hold the limits ``chip_smoke.py`` holds the kernels to, against the
+On bf16 values drawn as ``test_flash_attention_kernel_takes_bf16`` and
+``test_ssd_kernel_takes_bf16`` (``tests/test_torch_cuda.py``) draw them,
+the emulations must hold the limits those card tests hold the kernels to,
+against the
 port's plain versions (``flash_attention_plain``, ``ssd_chunked``) and the
 reference's (``ref.flash_attention_ref``, ``ssm.ssd_reference``) in f32 on
 the same values: B5 within 1e-4 of the query row's largest |o| plus 2^-8
@@ -94,7 +96,8 @@ def _attention(q, k, v, *, scale, causal, window, softcap, split=True):
 
 
 def _attn_inputs(seed, b, h, kv, sq, sk, hd):
-    """Normal q, k, v rounded to bf16 (as chip_smoke.py's bf16 checks)."""
+    """Normal q, k, v rounded to bf16 (as the card test
+    ``test_flash_attention_kernel_takes_bf16`` draws them)."""
     rng = np.random.default_rng(seed)
     return tuple(_bf(torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32))) for shape in ((b, h, sq, hd), (b, kv, sk, hd),
@@ -198,8 +201,8 @@ def _scan(x, dt, a_log, B, C, s0):
 
 
 def _ssd_inputs(seed, b, s, h, p, n, g):
-    """The serving statistics of chip_smoke.py's ``ssd_inputs``, with x,
-    B and C rounded to bf16: dt the softplus of a normal, A =
+    """The serving statistics of ``test_ssd_kernel_takes_bf16``'s inputs,
+    with x, B and C rounded to bf16: dt the softplus of a normal, A =
     -linspace(1, 16, h), x normal, B, C and the state 0.5 x normal."""
     rng = np.random.default_rng(seed)
     f = np.float32

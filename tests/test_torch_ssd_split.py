@@ -13,7 +13,8 @@ entering state, cumsums of dt·A in f64) and rounds the operands of its
 four products as the kernel does.  At the serving statistics (A up to
 16, softplus dt, several 256-row chunks and an initial state) it must
 stay within ``SSD_RTOL`` (1e-4 of the (batch, head)'s largest |value|,
-the limit ``chip_smoke.py`` holds the kernel to) of the reference's
+the limit ``test_ssd_kernel_matches_plain`` in ``tests/test_torch_cuda.py``
+holds the kernel to) of the reference's
 sequential ``ssd_reference``; the same form with plain TF32 operands
 must not, which is why the kernel splits them.
 """
@@ -101,9 +102,10 @@ def _kernel_scan(x, dt, a_log, B, C, s0, mode):
 
 
 def _inputs(seed, b, s, h, p, n, g):
-    """The serving statistics of chip_smoke.py's ``ssd_inputs``: dt the
-    softplus of a normal, A = -linspace(1, 16, h), x normal, B, C and the
-    state 0.5 x normal."""
+    """The serving statistics of the card test
+    ``test_ssd_kernel_matches_plain``'s inputs: dt the softplus of a
+    normal, A = -linspace(1, 16, h), x normal, B, C and the state 0.5 x
+    normal."""
     rng = np.random.default_rng(seed)
     f = np.float32
     x = rng.standard_normal((b, s, h, p)).astype(f)
