@@ -29,7 +29,9 @@ phase's failure is caught:
    bf16 inputs through its bf16 kernel; B6 on bf16 inputs too, each B6
    call split into its launches; the slot-skipping MoE expert kernel at
    qwen2-moe's decode shape and the sweep behind
-   ``moe.DECODE_MAX_SLOTS``).  Each timed kernel's output is held once
+   ``moe.DECODE_MAX_SLOTS``; B6's backward kernel at ``[train]``'s
+   shape beside the plain recompute it replaced).  Each timed kernel's
+   output is held once
    to its plain version's on the same inputs, at the card tests'
    limits (``held``).  Bounds take bytes at the HBM rate and
    B5's and B6's operations at the tensor cores' peaks, B6's counted
@@ -124,8 +126,9 @@ phase's failure is caught:
    are the graph's, held to the plain path's eager steps.
 8. ``[train]``: mamba2-130m at full width and depth in f32 (seed 0)
    trained through ``repro_torch.launch.train.Trainer`` on 8 x 2,048
-   tokens a step from a corpus in Clovis, B6 in every forward pass (24
-   launches a step): steps 1-20 with stream checkpoints; a T1 device
+   tokens a step from a corpus in Clovis, B6 in every forward pass and
+   its backward kernel in every backward pass (24 launches a step each):
+   steps 1-20 with stream checkpoints; a T1 device
    killed and repaired by HA; a new Trainer restores step 20 bit for
    bit against a host snapshot and trains steps 21-40; the loss must
    fall.  Then one checkpoint of the whole state (params, m, v) with
@@ -149,6 +152,7 @@ It imports nothing of JAX or of the reference package ``repro``.
 from __future__ import annotations
 
 import datetime
+import gc
 import hashlib
 import importlib.util
 import json
@@ -221,6 +225,7 @@ MODEL_CU = "src/repro_torch/csrc/model_kernels.cu"
 SSM_CU = "src/repro_torch/csrc/ssm_kernels.cu"
 ATTN_BF16_CU = "src/repro_torch/csrc/attention_bf16.cu"
 SSD_BF16_CU = "src/repro_torch/csrc/ssd_bf16.cu"
+SSD_BWD_CU = "src/repro_torch/csrc/ssd_bwd.cu"
 MOE_CU = "src/repro_torch/csrc/moe_decode.cu"
 KERNELS = {   # name -> (source, TPU kernel it replaces: reference file:line)
     "fused_filter_aggregate": (ANALYTICS_CU,
@@ -237,6 +242,8 @@ KERNELS = {   # name -> (source, TPU kernel it replaces: reference file:line)
     "ssd_scan_bf16": (SSD_BF16_CU, "src/repro/kernels/ssd_scan.py:32"),
     "moe_experts_decode": (MOE_CU, "none: the reference's MoE runs through "
                            "jnp (src/repro/models/moe.py)"),
+    "ssd_scan_bwd": (SSD_BWD_CU, "none: the reference takes jax.grad of "
+                     "ssd_chunked (src/repro/models/ssm.py:93)"),
 }
 MODEL_KERNELS = ("flash_attention", "rglru_scan", "ssd_scan",
                  "flash_attention_bf16", "ssd_scan_bf16")
@@ -252,7 +259,8 @@ BF16_KERNELS = {"flash_attention": "flash_attention_bf16",
 # kernels whose SASS must hold tensor-core instructions: the f32 ones
 # HMMA (mma.sync), the bf16 ones HGMMA (wgmma)
 HMMA_KERNELS = ("flash_attention_kernel", "ssd_state_kernel",
-                "ssd_out_kernel")
+                "ssd_out_kernel", "ssd_bwd_dstate_kernel",
+                "ssd_bwd_chunk_kernel")
 HGMMA_KERNELS = ("flash_attention_bf16_kernel", "ssd_state_bf16_kernel",
                  "ssd_out_bf16_kernel")
 AGG_PTXAS = ("fused_kernel", "segment_kernel", "combine_kernel")  # B1, B2
@@ -831,6 +839,7 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     log_ssd_launches(torch, lambda: KS.ssd_scan(
         *args[:5], chunk=chunk, initial_state=args[5]), "ssd_scan")
     del args, got, want
+    out["ssd_scan_bwd"] = ssd_bwd_timing(torch, KS, gen, dev)
     out.update(moe_decode_timing(torch, dev))
 
     for name, r in out.items():
@@ -865,6 +874,50 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
             f"({r['bound_bytes']} B at {HBM_BYTES_PER_S:.3g} B/s = "
             f"{bytes_ms:.4f} ms{extra})")
     return out
+
+
+def ssd_bwd_timing(torch, KS, gen, dev):
+    """[timing] B6's backward kernel at [train]'s shape (one SSD layer of
+    mamba2-130m on 8 x 2,048 tokens, no state): one ``sage_ssd_scan_bwd``
+    launch from what the forward kept, beside the plain recompute it
+    replaced (``ssd_chunked`` at chunk 256 and ``torch.autograd.grad`` of
+    it), each gradient held to ``ssd_chunked_bwd`` within 1e-4 of its
+    largest |value| over the (batch, head) or (batch, group), d a_log's
+    over the heads (the card tests' limit).  Its bound is bytes: each
+    input it reads and each gradient it writes, once."""
+    b, s_, h, p, n, g = TRAIN_BATCH, TRAIN_SEQ, 24, 64, 128, 1
+    args = ssd_inputs(torch, gen, dev, b, s_, h, p, n, g, False)[:5]
+    dy = torch.randn((b, s_, h, p), generator=gen, device=dev)
+    _, _, kept = KS._launch(*args, None, keep=True)
+    got = KS._launch_bwd(*kept, dy, None, False)
+    want = KS.ssd_chunked_bwd(*args, dy, 256)
+    err = max(held(f"ssd_scan_bwd {name}", gt, w, 1e-4 * (
+        w.abs().amax() if dims is None else w.abs().amax(dim=dims,
+                                                          keepdim=True)))
+        for name, gt, w, dims in zip(
+            ("dx", "ddt", "da_log", "dB", "dC"), got, want,
+            ((1, 3), (1,), None, (1, 3), (1, 3))))
+    del got, want
+    ins = [t.clone().requires_grad_(True) for t in args]
+
+    def plain():
+        with torch.enable_grad():
+            y, _ = KS.ssd_chunked(*ins, 256)
+            torch.autograd.grad(y, ins, dy)
+    # read: x, dy, dt, a_log, B, C and the forward's states, decays and
+    # C B^T tiles; written: dx, ddt, d a_log, dB, dC
+    io = (2 * (2 * b * s_ * h * p + b * s_ * h + 2 * b * s_ * g * n + h)
+          - b * s_ * h * p + sum(t.numel() for t in kept[5:]))
+    r = dict(max_abs_err=err,
+             ms=device_ms(torch, lambda: KS._launch_bwd(*kept, dy, None,
+                                                        False)),
+             plain_ms=device_ms(torch, plain, reps=3), library_ms=None,
+             bound_bytes=4 * io,
+             shape=f"b={b} s={s_} h={h} p={p} n={n} g={g} f32, gradients "
+             f"of every input")
+    log_ssd_launches(torch, lambda: KS._launch_bwd(*kept, dy, None, False),
+                     "ssd_scan_bwd")
+    return r
 
 
 def log_ssd_launches(torch, call, label):
@@ -1781,7 +1834,10 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
                 memory_moves(torch, srv.params, cfg, dev, tag, prompts,
                              logits[0], memory_inputs(cfg, rng, batch))
             del logits
+        # the Server (its weights, caches and decode graphs) may sit in a
+        # reference cycle: collect it before the next phase draws its own
         del srv
+        gc.collect()
         torch.cuda.empty_cache()
         served = {k: launches[k] for k in used}
         if cfg.is_moe:
@@ -2282,11 +2338,13 @@ def phase_train(torch, ext, dev):
         params, opt, hist = tr.train(TRAIN_RESTART, loader, params=params,
                                      opt_state=opt, log_every=1)
         launches = ext.LAUNCHES["ssd_scan"]     # ends here
+        bwd = ext.LAUNCHES["ssd_scan_bwd"]
         loader.close()
         tr.ckpt.close()
-        if launches != n_layers * TRAIN_RESTART:
+        if not launches == bwd == n_layers * TRAIN_RESTART:
             fail(f"[train] steps 1-{TRAIN_RESTART} launched B6 {launches} "
-                 f"times, expected {n_layers} a step")
+                 f"and its backward {bwd} times, expected {n_layers} a "
+                 f"step each")
         saved = host_snapshot(torch, {"params": params, "opt": opt})
         ckpt1 = [(i.step, i.strategy, round(i.seconds, 3))
                  for i in tr.ckpt.history]
@@ -2329,10 +2387,12 @@ def phase_train(torch, ext, dev):
                                        params=params, opt_state=opt,
                                        log_every=1)
         launches2 = ext.LAUNCHES["ssd_scan"]    # ends here
+        bwd2 = ext.LAUNCHES["ssd_scan_bwd"]
         loader.close()
-        if launches2 != n_layers * (TRAIN_STEPS - step):
+        if not launches2 == bwd2 == n_layers * (TRAIN_STEPS - step):
             fail(f"[train] steps {step + 1}-{TRAIN_STEPS} launched B6 "
-                 f"{launches2} times, expected {n_layers} a step")
+                 f"{launches2} and its backward {bwd2} times, expected "
+                 f"{n_layers} a step each")
         peak = torch.cuda.max_memory_allocated(dev)
 
         # 5. the losses
@@ -2375,7 +2435,8 @@ def phase_train(torch, ext, dev):
                 f"GB/s, restored to the card in {load_s:.3f} s = "
                 f"{info.bytes / load_s / 1e9:.3f} GB/s, equal bit for bit")
         del want
-        return {"ssd_scan": launches + launches2}
+        return {"ssd_scan": launches + launches2,
+                "ssd_scan_bwd": bwd + bwd2}
     finally:
         remove_store(root)
 
@@ -2593,6 +2654,7 @@ def main() -> int:
           prompt=WHISPER_PROMPT, gen=WHISPER_GEN)
     launches.update({k: runs[tag][k] for k, tag in LAUNCHED_IN.items()})
     trained = phase_train(torch, _ext, dev)
+    launches["ssd_scan_bwd"] = trained["ssd_scan_bwd"]
     lap("train")
     distributed = phase_dist(torch, _ext, dev)
     lap("dist")

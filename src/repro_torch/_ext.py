@@ -61,6 +61,9 @@ _SIGNATURES = {
                       _P, _P, _P, _P, _P, _I, _I, _P),
     "sage_ssd_scan_bf16": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I,
                            _I, _P, _P, _P, _P, _I, _I, _P),
+    "sage_ssd_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                          _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _I, _I, _I, _P),
     "sage_moe_experts_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _P, _P, _P, _P),
     "sage_error_string": (_I,),
@@ -71,7 +74,7 @@ LAUNCHES: Dict[str, int] = {"fused_filter_aggregate": 0,
                             "heat_scan": 0, "flash_attention": 0,
                             "flash_attention_bf16": 0, "rglru_scan": 0,
                             "ssd_scan": 0, "ssd_scan_bf16": 0,
-                            "moe_experts_decode": 0}
+                            "ssd_scan_bwd": 0, "moe_experts_decode": 0}
 _launch_lock = threading.Lock()
 
 

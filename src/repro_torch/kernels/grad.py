@@ -4,13 +4,16 @@ The reference has no backward kernel: JAX differentiates the plain
 functions it trains with (``ssd_chunked``, the dense attention, the
 associative scan), and no Pallas kernel of it has a ``custom_vjp``.  On
 the card the port's forward launches the kernel, so the kernel's output
-needs a gradient of its own: ``with_plain_grad`` wraps a launch in a
+needs a gradient of its own.  B6 on f32 x, B, C takes a backward kernel
+of its own (``kernels.ssd``, ``csrc/ssd_bwd.cu``).  B5 (f32 and bf16),
+bf16 B6 and B7 take ``with_plain_grad``: it wraps a launch in a
 ``torch.autograd.Function`` whose backward recomputes the kernel's plain
 version from the saved inputs and returns ``torch.autograd.grad`` of it.
 That is the gradient the reference takes, at the cost of one more
-forward of the plain version per call.  Each backward is a
-``grad.recompute`` span (``repro_torch.trace``), timed on the device
-while tracing is on.
+forward of the plain version per call.  Each backward, the kernel's
+included, is a ``grad.recompute`` span (``repro_torch.trace``) whose
+``kernel`` names the forward's launch, timed on the device while tracing
+is on.
 """
 from __future__ import annotations
 

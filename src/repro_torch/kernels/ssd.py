@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch._ext import count_launch
 from repro_torch.kernels.grad import wants_grad, with_plain_grad
 from repro_torch.kernels.sharded import (is_distributed, require_local,
@@ -97,7 +98,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
     # intra-chunk (diagonal blocks): Y = (C B^T . decay . causal) @ (dt*x)
     # (out of place throughout, so that autograd can take its gradient:
-    # the card's B6 backward recomputes this function)
+    # the card's backward of bf16 B6 recomputes this function)
     scores = torch.einsum("bclgn,bcsgn->bcgls", Cc, Bc)   # (b,nc,g,L,L)
     gated = torch.exp(_segsum(hi)).view(b, nc, g, r, L, L)
     gated = gated * scores[:, :, :, None]
@@ -131,6 +132,122 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         dA.dtype)[..., None]
     y = (y_diag + y_off).permute(0, 1, 3, 2, 4).reshape(b, nc * L, h, p)
     return y[:, :s].to(out_dtype), carry
+
+
+def ssd_chunked_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                    chunk: int, initial_state: Optional[torch.Tensor] = None,
+                    dfinal: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``ssd_chunked`` by the chunked algorithm run in
+    reverse, the passes of B6's backward kernel (``csrc/ssd_bwd.cu``) as
+    explicit steps.  ``dy`` is y's gradient, ``dfinal`` the final
+    state's (None: 0).  Returns (dx, ddt, d a_log, dB, dC, d
+    initial_state), in f32 or wider, the last one whatever
+    ``initial_state`` is (its gradient is the state's entering the first
+    chunk).
+
+    With H_c the state entering chunk c, D_c its decay and cs the
+    in-chunk cumsum of dt A: (1) Q_c = sum_i exp(cs_i) dy_i (x) C_i; (2)
+    the reverse walk dS_c = dH_{c+1}, dH_c = D_c dH_{c+1} + Q_c from dH =
+    ``dfinal``; (3) in each chunk, with M = C B^T exp(cs_i - cs_j) and
+    Wd = dy x^T exp(cs_i - cs_j) (j <= i), e_j = exp(cs_last - cs_j):
+      dx_j  = dt_j (M^T dy + e_j dS B_j),
+      dB'_j = Wd^T C + e_j dS^T x_j           (dB = dt dB'),
+      dC_i  = Wd (dt B) + exp(cs_i) dy_i H_c,
+      ddt_j = B_j . dB'_j + A ddA_j,
+    and the gradient of dA_k as sums that cancel nothing: over the
+    rectangle i >= k > j of Wd C B^T dt_j, over rows i >= k of
+    exp(cs_i) dy_i . H_c C_i, over rows j < k of e_j dt_j x_j . dS B_j,
+    and D_c <dS, H_c>, the 1-D sums in f64.  (Autograd of
+    ``ssd_chunked`` takes row sums less column sums, and its f32 d a_log
+    strays ~1e-4 of its largest where this stays ~1e-6.)  d a_log = A sum
+    dt ddA.  dB and dC sum the heads of a group."""
+    wide = torch.promote_types(x.dtype, torch.float32)
+    x, B, C, dy = (t.to(wide) for t in (x, B, C, dy))
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    r = h // g
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    L = chunk
+
+    def heads(t):       # (b, s, k, f) -> (b, k, nc, L, f), padded with 0
+        t = F.pad(t, (0, 0, 0, 0, 0, pad))
+        return t.reshape(b, nc, L, t.shape[2], t.shape[3]).permute(
+            0, 3, 1, 2, 4)
+    grp = torch.arange(h, device=x.device) // r
+    xh, dyh = heads(x), heads(dy)                        # (b, h, nc, L, p)
+    Bh, Ch = heads(B)[:, grp], heads(C)[:, grp]          # (b, h, nc, L, n)
+    dth = F.pad(dt, (0, 0, 0, pad)).reshape(b, nc, L, h).permute(0, 3, 1, 2)
+
+    A = -torch.exp(a_log)
+    dA = dth * A[:, None, None]                          # (b, h, nc, L)
+    cs = torch.cumsum(dA.double(), dim=-1)
+    last = cs[..., -1:]
+    to_end = torch.exp((last - cs).to(dA.dtype))         # exp(cs_last - cs)
+    from_start = torch.exp(cs.to(dA.dtype))              # exp(cs)
+    decay = torch.exp(last.to(dA.dtype))[..., None]      # (b, h, nc, 1, 1)
+
+    # the states entering each chunk, and the one leaving it
+    local = torch.matmul((xh * (to_end * dth)[..., None]).transpose(-1, -2),
+                         Bh)                             # (b, h, nc, p, n)
+    carry = (torch.zeros((b, h, p, n), dtype=wide, device=x.device)
+             if initial_state is None else initial_state.to(wide))
+    enter = []
+    for c in range(nc):
+        enter.append(carry)
+        carry = carry * decay[:, :, c] + local[:, :, c]
+    H = torch.stack(enter, dim=2)
+
+    # (1) and (2): each chunk's leaving state's gradient
+    Q = torch.matmul((dyh * from_start[..., None]).transpose(-1, -2), Ch)
+    grad = (torch.zeros((b, h, p, n), dtype=wide, device=x.device)
+            if dfinal is None else dfinal.to(wide))
+    leave = [None] * nc
+    for c in reversed(range(nc)):
+        leave[c] = grad
+        grad = grad * decay[:, :, c] + Q[:, :, c]
+    dS = torch.stack(leave, dim=2)
+
+    # (3): each chunk's own rows
+    seg = (cs[..., :, None] - cs[..., None, :]).to(dA.dtype)
+    causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    E = torch.exp(seg.masked_fill_(~causal, float("-inf")))
+    scores = torch.matmul(Ch, Bh.transpose(-1, -2))
+    Wd = torch.matmul(dyh, xh.transpose(-1, -2)) * E      # dy x^T decayed
+    dx = dth[..., None] * (to_end[..., None] * torch.matmul(
+        Bh, dS.transpose(-1, -2)) + torch.matmul(
+            (scores * E).transpose(-1, -2), dyh))
+    del seg, E
+    dB_state = to_end[..., None] * torch.matmul(xh, dS)
+    dC_state = from_start[..., None] * torch.matmul(dyh, H)
+    dBh = dB_state + torch.matmul(Wd.transpose(-1, -2), Ch)   # dB / dt
+    dCh = dC_state + torch.matmul(Wd, Bh * dth[..., None])
+    ddt = (Bh * dBh).sum(-1)                             # (b, h, nc, L)
+    # ddA_k, each part a sum with no cancellation: the (i >= k, j < k)
+    # rectangle of W = Wd C B^T dt_j, the y_off terms of rows i >= k, the
+    # state terms of rows j < k and the chunk decay's
+    W = Wd * scores * dth[..., None, :]
+    del Wd, scores
+    W = torch.cumsum(W, -1) - W                          # sum over j < k
+    rect = W.flip(-2).cumsum(-2).flip(-2).diagonal(dim1=-2, dim2=-1)
+    del W
+    y_off = (Ch * dC_state).sum(-1).double()
+    to_state = (dth * (Bh * dB_state).sum(-1)).double()
+    ddA = (rect.double() + y_off.flip(-1).cumsum(-1).flip(-1)
+           + torch.cumsum(to_state, -1) - to_state
+           + (decay * dS * H).sum((-1, -2)).double()[..., None])
+    ddt = ddt + A[:, None, None] * ddA.to(ddt.dtype)
+    da_log = (A.double() * (dth.double() * ddA).sum((0, 2, 3))).to(A.dtype)
+
+    def rows(t):        # (b, k, nc, L, f) -> (b, s, k, f)
+        return t.permute(0, 2, 3, 1, 4).reshape(b, nc * L, t.shape[1],
+                                                t.shape[4])[:, :s]
+    dB = (dBh * dth[..., None]).view(b, g, r, nc, L, n).sum(2)
+    dC = dCh.view(b, g, r, nc, L, n).sum(2)
+    return (rows(dx), rows(ddt[..., None])[..., 0], da_log, rows(dB),
+            rows(dC), grad)
 
 
 def _check(x, dt, a_log, B, C, initial_state):
@@ -174,9 +291,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     differ by rounding.  A CPU tensor runs ``ssd_chunked``.
 
     Where autograd records and an input requires grad, the CUDA route
-    still launches the kernel, and its backward is the gradient of
-    ``ssd_chunked`` at ``chunk`` recomputed from the saved inputs
-    (``kernels.grad``), for every input the state included.
+    still launches the kernel.  On f32 x, B, C it keeps the scratch
+    (the states entering the chunks, their decays and the sub-chunks'
+    C·Bᵀ: 54.5 MB a layer at mamba2's training shape) and its backward
+    is a kernel too, ``sage_ssd_scan_bwd`` (``csrc/ssd_bwd.cu``, the
+    passes of ``ssd_chunked_bwd``); on bf16 ones the backward is the
+    gradient of ``ssd_chunked`` at ``chunk`` recomputed from the saved
+    inputs (``kernels.grad``).  Either gives every input's gradient, the
+    state's included.
     ``DTensor`` inputs run this on each rank's batch rows and heads
     (``kernels.sharded``; B and C split their groups with the heads,
     or stay whole where there is one group)."""
@@ -196,10 +318,40 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if not x.is_cuda:
         return ssd_chunked(x, dt, a_log, B, C, chunk, initial_state)
     if wants_grad(*tensors):
+        if _name(x) == "ssd_scan":
+            return _ScanWithKernelGrad.apply(x, dt, a_log, B, C,
+                                             initial_state)
         return with_plain_grad(
             _launch, lambda *a: ssd_chunked(*a[:5], chunk, a[5]),
             x, dt, a_log, B, C, initial_state, kernel=_name(x))
     return _launch(x, dt, a_log, B, C, initial_state)
+
+
+class _ScanWithKernelGrad(torch.autograd.Function):
+    """B6 on f32 inputs that require grad: the forward's one launch,
+    keeping its scratch, and a backward of one ``sage_ssd_scan_bwd``
+    launch in a ``grad.recompute`` span (``kernel="ssd_scan"``, the name
+    ``ssd_recompute_ms.train`` reads), counted as ``grad.ssd_bwd_kernel``
+    in the span's unit."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, B, C, initial_state):
+        y, final, kept = _launch(x, dt, a_log, B, C, initial_state,
+                                 keep=True)
+        ctx.dtypes = tuple(None if t is None else t.dtype
+                           for t in (x, dt, a_log, B, C, initial_state))
+        ctx.save_for_backward(*kept)
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        with trace.span("grad.recompute", device=True, kernel="ssd_scan"):
+            trace.count("grad.ssd_bwd_kernel")
+            grads = _launch_bwd(*ctx.saved_tensors, dy, dfinal,
+                                ctx.needs_input_grad[5])
+        return tuple(g.to(t) if need else None for g, t, need in
+                     zip(grads, ctx.dtypes, ctx.needs_input_grad))
 
 
 def _name(x) -> str:
@@ -207,14 +359,16 @@ def _name(x) -> str:
     return "ssd_scan_bf16" if x.dtype == torch.bfloat16 else "ssd_scan"
 
 
-def _launch(x, dt, a_log, B, C, initial_state):
+def _launch(x, dt, a_log, B, C, initial_state, keep=False):
     """One launch on checked CUDA inputs: ``sage_ssd_scan`` on f32 x, B, C
     (other inputs cast to f32), ``sage_ssd_scan_bf16`` on bf16 ones (no
     copy of x, B or C; dt, a_log and the state cast to f32, which they
     already are in the models: only tests/test_torch_cuda.py's
     ``test_ssd_kernel_takes_bf16`` hands in a bf16 state).  y comes back
     in x.dtype, the state in f32, as from ``ssd_chunked``.  No caller
-    mixes the types of x, B and C, so a mix is refused."""
+    mixes the types of x, B and C, so a mix is refused.  ``keep`` (f32
+    only): also return what the backward kernel reads, (x, dt, a_log, B,
+    C, states, decay, scores) as launched."""
     require_local(x, dt, a_log, B, C, initial_state)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -269,4 +423,60 @@ def _launch(x, dt, a_log, B, C, initial_state):
                 scores.data_ptr(), KERNEL_CHUNK, KERNEL_SUB, stream)
     _ext.check(lib, err, name)
     count_launch(name)
+    if keep:
+        return y, final, (x, dt, a_log, B, C, states, decay, scores)
     return y, final
+
+
+def _bwd_p_slice(n: int) -> int:
+    """The p slice of the backward's per-chunk pass (its shared memory
+    holds the slice's states): the kernel refuses any other."""
+    return 64 if n <= 128 else 16
+
+
+def _launch_bwd(x, dt, a_log, B, C, states, decay, scores, dy, dfinal,
+                want_state):
+    """One ``sage_ssd_scan_bwd`` launch on what ``_launch`` kept and the
+    outputs' gradients (None: 0).  Returns (dx, ddt, d a_log, dB, dC, d
+    initial_state or None), f32."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nc = states.shape[2]
+    nps = -(-p // _bwd_p_slice(n))
+    dev = x.device
+    dy = (torch.zeros_like(x) if dy is None
+          else dy.to(torch.float32).contiguous())
+    if dfinal is not None:
+        dfinal = dfinal.to(torch.float32).contiguous()
+        if dfinal.data_ptr() % 16:
+            dfinal = dfinal.clone()
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    dx, ddt, da_log = f32(b, s, h, p), f32(b, s, h), f32(h)
+    dB, dC = f32(b, s, g, n), f32(b, s, g, n)
+    ds0 = f32(b, h, p, n) if want_state else None
+    # scratch: the chunks' leaving states' gradients, the states entering
+    # two sub-chunks of each chunk, the per-slice partials of dB and dC
+    # (over a group's heads) and of ddt's direct part and ddA
+    dstates = f32(b, h, nc, p, n)
+    hsub = f32(b, h, nc, KERNEL_CHUNK // KERNEL_SUB - 2, p, n)
+    dbp, dcp = f32(b, s, g, h // g * nps, n), f32(b, s, g, h // g * nps, n)
+    ddtp, ddap = f32(b, h, nps, s), f32(b, h, nps, s)
+    from repro_torch import _ext
+    lib = _ext.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sage_ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), B.data_ptr(),
+            C.data_ptr(), states.data_ptr(), decay.data_ptr(),
+            scores.data_ptr(), dy.data_ptr(),
+            None if dfinal is None else dfinal.data_ptr(), b, s, h, p, g, n,
+            dx.data_ptr(), ddt.data_ptr(), da_log.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), None if ds0 is None else ds0.data_ptr(),
+            dstates.data_ptr(), hsub.data_ptr(), dbp.data_ptr(),
+            dcp.data_ptr(), ddtp.data_ptr(), ddap.data_ptr(), KERNEL_CHUNK,
+            KERNEL_SUB, _bwd_p_slice(n), stream)
+    _ext.check(lib, err, "ssd_scan_bwd")
+    count_launch("ssd_scan_bwd")
+    return dx, ddt, da_log, dB, dC, ds0

@@ -49,7 +49,7 @@ def make_grad_fn(cfg: ModelConfig, run: RunConfig):
                                         use_kernels=True)
         # deepseek's router bias only selects experts: no gradient reaches
         # it, and its zeros are the reference's.  Autograd's device thread
-        # puts the kernels' recompute (grad.recompute) under this span
+        # puts the kernels' backward (grad.recompute) under this span
         with trace.span("train.backward", device=True, lend=True):
             grads = torch.autograd.grad(loss, flat, allow_unused=True,
                                         materialize_grads=True)

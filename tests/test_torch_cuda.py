@@ -893,7 +893,8 @@ def test_attention_decode_graph_matches_eager_decode(dev, tmp_path, arch,
 
 # ---------------------------------------------------------------------------
 # gradients through the model kernels: the forward launches the kernel,
-# the backward recomputes the plain version (kernels.grad); each input's
+# the backward is B6's backward kernel on f32 inputs (csrc/ssd_bwd.cu) and
+# recomputes the plain version elsewhere (kernels.grad); each input's
 # gradient within 1e-3 of that input's largest |g| through the plain path
 # ---------------------------------------------------------------------------
 
@@ -901,9 +902,11 @@ GRAD_RTOL = 1e-3
 
 
 def _grads_match(dev, kernel_fn, plain_fn, inputs, launches_name,
-                 dtype=torch.float32):
+                 dtype=torch.float32, bwd_launches=None):
     """``dtype``: each gradient's dtype must be its input's, and both
-    paths' must be ``dtype`` where it is given."""
+    paths' must be ``dtype`` where it is given.  ``bwd_launches``: the
+    launches the backward adds ({"ssd_scan_bwd": 1} for f32 B6), and
+    ``ssd_scan_bwd`` none where it is not given."""
     from repro_torch import _ext
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -922,6 +925,8 @@ def _grads_match(dev, kernel_fn, plain_fn, inputs, launches_name,
     pg = torch.autograd.grad(sum((o * w).sum() for o, w in zip(pout, ws)),
                              pin)
     assert _ext.LAUNCHES[launches_name] == 1      # the backward launches none
+    for name, n in {"ssd_scan_bwd": 0, **(bwd_launches or {})}.items():
+        assert _ext.LAUNCHES[name] == n
     for k, p, t in zip(kg, pg, inputs):
         assert k.dtype == p.dtype == t.dtype
         assert dtype is None or k.dtype == dtype
@@ -967,7 +972,12 @@ def test_rglru_gradient_matches_plain(dev, with_h0):
 
 @pytest.mark.parametrize("b,s,h,p,n,g,chunk,with_state",
                          [(2, 300, 4, 64, 128, 1, 256, True),
-                          (1, 77, 4, 32, 16, 2, 16, False)])
+                          (1, 77, 4, 32, 16, 2, 16, False),
+                          # the trained shape, n 256 with p 32, g 2 with
+                          # a partial chunk
+                          (8, 2048, 24, 64, 128, 1, 256, False),
+                          (1, 300, 4, 32, 256, 1, 256, True),
+                          (2, 300, 4, 64, 128, 2, 256, True)])
 def test_ssd_gradient_matches_plain(dev, b, s, h, p, n, g, chunk,
                                     with_state):
     from repro_torch.kernels import ssd as KS
@@ -988,7 +998,82 @@ def test_ssd_gradient_matches_plain(dev, b, s, h, p, n, g, chunk,
                                     else None),
         lambda *t: KS.ssd_chunked(*t[:5], chunk,
                                   t[5] if with_state else None),
-        inputs, "ssd_scan")
+        inputs, "ssd_scan", bwd_launches={"ssd_scan_bwd": 1})
+
+
+# B6's backward kernel against ssd_chunked_bwd (f32, TF32 off) at the
+# card's statistics (A to -16, softplus dt, states and the final state's
+# gradient): each gradient within SSD_BWD_RTOL of its largest |value| over
+# the (batch, head) or (batch, group), d a_log over the heads.  Edge
+# shapes (a chunk shorter than a sub-chunk, partial chunks, p % 4 != 0,
+# two p slices at n 256, g 2 and 3), n 256 with p 32, and the trained
+# shape
+SSD_BWD_RTOL = 1e-4
+SSD_BWD_CASES = [(2, 77, 4, 32, 16, 2, True, True),
+                 (1, 40, 3, 6, 32, 1, False, True),
+                 (2, 300, 4, 64, 128, 2, True, True),
+                 (2, 513, 8, 64, 128, 1, False, False),
+                 (1, 600, 4, 64, 256, 1, True, True),
+                 (2, 300, 4, 32, 256, 2, True, False),
+                 (1, 130, 6, 40, 64, 3, False, True),
+                 (8, 2048, 24, 64, 128, 1, False, False)]
+
+
+def _ssd_bwd_inputs(dev, b, s, h, p, n, g, with_state, with_dfinal):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(b * s + n + g)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    x, dt = r(b, s, h, p), torch.nn.functional.softplus(r(b, s, h))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    B, C = r(b, s, g, n, scale=0.5), r(b, s, g, n, scale=0.5)
+    s0 = r(b, h, p, n, scale=0.5) if with_state else None
+    dy = r(b, s, h, p)
+    df = r(b, h, p, n) if with_dfinal else None
+    return [x, dt, a_log, B, C, s0], dy, df
+
+
+def _ssd_kernel_grads(args, dy, df):
+    """The gradients of ``ssd_scan`` through its backward kernel, the
+    initial state's where there is one."""
+    from repro_torch.kernels import ssd as KS
+    ins = [None if t is None else t.clone().requires_grad_(True)
+           for t in args]
+    y, final = KS.ssd_scan(*ins[:5], initial_state=ins[5])
+    loss = (y * dy).sum() + (0 if df is None else (final * df).sum())
+    return torch.autograd.grad(loss, [t for t in ins if t is not None])
+
+
+@pytest.mark.parametrize("b,s,h,p,n,g,with_state,with_dfinal",
+                         SSD_BWD_CASES)
+def test_ssd_backward_kernel_matches_plain_backward(
+        dev, b, s, h, p, n, g, with_state, with_dfinal):
+    from repro_torch import _ext
+    from repro_torch.kernels import ssd as KS
+    args, dy, df = _ssd_bwd_inputs(dev, b, s, h, p, n, g, with_state,
+                                   with_dfinal)
+    _ext.reset_launch_counts()
+    got = _ssd_kernel_grads(args, dy, df)
+    assert _ext.LAUNCHES["ssd_scan"] == 1
+    assert _ext.LAUNCHES["ssd_scan_bwd"] == 1
+    want = KS.ssd_chunked_bwd(*args[:5], dy, 256, args[5], df)
+    dims = ((1, 3), (1,), None, (1, 3), (1, 3), (2, 3))
+    for gt, w, d in zip(got, want, dims):
+        assert gt.shape == w.shape and gt.dtype == torch.float32
+        scale = (w.abs().amax() if d is None
+                 else w.abs().amax(dim=d, keepdim=True))
+        assert bool(((gt - w).abs() <= SSD_BWD_RTOL * scale).all())
+
+
+def test_ssd_backward_kernel_gives_the_same_bits_every_run(dev):
+    """No float atomics: two backward calls on the same inputs (g 2,
+    two partial chunks) give the same bits."""
+    args, dy, df = _ssd_bwd_inputs(dev, 2, 300, 4, 64, 128, 2, True, True)
+    first = _ssd_kernel_grads(args, dy, df)
+    second = _ssd_kernel_grads(args, dy, df)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_bf16_gradients_through_b5_and_b6(dev):
@@ -1018,7 +1103,7 @@ def test_bf16_gradients_through_b5_and_b6(dev):
                         ).bfloat16() * 0.3 for _ in range(2))
     _grads_match(dev, lambda *t: KS.ssd_scan(*t, chunk=16),
                  lambda *t: KS.ssd_chunked(*t, 16), [x, dt, a_log, B, C],
-                 "ssd_scan_bf16", dtype=None)
+                 "ssd_scan_bf16", dtype=None)   # and no ssd_scan_bwd
 
 
 def test_wrappers_without_grad_keep_their_path(dev):
@@ -1057,6 +1142,31 @@ def test_mamba2_train_step_on_cuda_matches_plain_path(dev, tmp_path):
     for k, p in zip(gk, gp):
         assert float((k - p).abs().max()) <= GRAD_RTOL * float(
             p.abs().max())
+
+
+def test_mamba2_trainer_step_launches_the_backward_kernel(dev, tmp_path):
+    """A ``Trainer.step`` of a narrow mamba2 (state 128, head dim 64)
+    launches B6 and its backward kernel each once a layer, and counts
+    ``grad.ssd_bwd_kernel`` once a layer in its ``train.step`` unit."""
+    from repro_torch import _ext, trace
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import model as mdl
+    cfg = get_smoke_config("mamba2-130m").scaled(
+        dtype="float32", ssm_state=128, ssm_headdim=64, d_model=128)
+    run = RunConfig(arch="mamba2-130m", remat="none", total_steps=2,
+                    warmup_steps=1, checkpoint_every=1000)
+    tr = Trainer(cfg, run, tmp_path / "run", device=dev)
+    params, opt = tr.init_state(0)
+    _ext.reset_launch_counts()
+    _, _, metrics = tr.step(params, opt, mdl.make_batch(0, cfg, 2, 300))
+    assert np.isfinite(float(metrics["loss"]))
+    assert _ext.LAUNCHES["ssd_scan"] == cfg.n_layers
+    assert _ext.LAUNCHES["ssd_scan_bwd"] == cfg.n_layers
+    unit = trace.units("train.step")[-1]
+    assert unit.counts.get("grad.ssd_bwd_kernel") == cfg.n_layers
+    tr.ckpt.close()
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -169,6 +170,53 @@ def test_parents_and_units_across_threads(fake_cuda, traced):
     assert u.seconds["grad.recompute"] > 0
     # nothing is lent once the span closes
     assert trace._lent == []
+
+
+def test_ssd_backward_kernel_counts_in_the_lent_step(monkeypatch, fake_cuda,
+                                                     traced):
+    """B6's backward kernel counts ``grad.ssd_bwd_kernel`` inside its
+    ``grad.recompute`` span (``kernel="ssd_scan"``): run on a thread with
+    no span open, as autograd's device thread runs it, the count lands in
+    the lent ``train.step`` unit and in the span's record.  The launch is
+    stood in for by ``ssd_chunked_bwd`` on the CPU."""
+    from repro_torch.kernels import ssd
+    t0 = time.time_ns()
+    g = torch.Generator().manual_seed(0)
+    x, dy = (torch.randn((1, 70, 2, 8), generator=g) for _ in range(2))
+    dt = torch.rand((1, 70, 2), generator=g) * 0.1
+    a_log = torch.zeros(2)
+    B, C = (torch.randn((1, 70, 1, 16), generator=g) for _ in range(2))
+    threads = []
+
+    def launch_bwd(x, dt, a_log, B, C, states, decay, scores, dy, dfinal,
+                   want_state):
+        threads.append(threading.get_ident())
+        return ssd.ssd_chunked_bwd(x, dt, a_log, B, C, dy, 64)[:5] + (None,)
+    monkeypatch.setattr(ssd, "_launch_bwd", launch_bwd)
+    ctx = SimpleNamespace(
+        saved_tensors=(x, dt, a_log, B, C, None, None, None),
+        needs_input_grad=(True,) * 5 + (False,),
+        dtypes=(torch.float32,) * 5 + (None,))
+    before = trace.counters().get("grad.ssd_bwd_kernel", 0)
+    out = {}
+    with trace.unit("train.step") as u:
+        with trace.span("train.backward", device=True, lend=True):
+            th = threading.Thread(target=lambda: out.update(
+                grads=ssd._ScanWithKernelGrad.backward(ctx, dy, None)))
+            th.start()
+            th.join(timeout=60)
+            assert not th.is_alive()
+    assert threads and threads[0] != threading.get_ident()
+    assert u.counts["grad.ssd_bwd_kernel"] == 1
+    assert trace.counters()["grad.ssd_bwd_kernel"] == before + 1
+    (span,) = [s for s in _mine(t0) if s.name == "grad.recompute"]
+    assert span.attrs["kernel"] == "ssd_scan" and span.unit == u.id
+    assert span.counts == {"grad.ssd_bwd_kernel": 1}
+    assert span.device_ms is not None
+    want = ssd.ssd_chunked_bwd(x, dt, a_log, B, C, dy, 64)
+    for got, w in zip(out["grads"][:5], want):
+        torch.testing.assert_close(got, w, rtol=0, atol=0)
+    assert out["grads"][5] is None
 
 
 def _clock_gaps():
