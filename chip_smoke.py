@@ -26,7 +26,10 @@ phase's failure is caught:
    kept busy while the host enqueues) at the shape its path gives it,
    beside its bound, its plain version and, where one exists, one
    PyTorch library call (B5 also at every served shape, in f32 and on
-   bf16 inputs through its bf16 kernel; B6 on bf16 inputs too, each B6
+   bf16 inputs through its bf16 kernel, and at MLA's prefill shape
+   through ``mla.attend_kernel``'s zero padding, held to
+   ``mla._attend_plain`` and bounded at the model's widths; B6 on bf16
+   inputs too, each B6
    call split into its launches; the slot-skipping MoE expert kernel at
    qwen2-moe's decode shape and the sweep behind
    ``moe.DECODE_MAX_SLOTS``; B6's backward kernel at ``[train]``'s
@@ -82,11 +85,12 @@ phase's failure is caught:
    ``SERVE_LOGIT_RTOL`` of the step's largest |logit|) with equal greedy
    tokens, and the token log must read back from Clovis.
    ``[serve-mla]``: deepseek-v3-671b, its depth cut to its 3 dense
-   layers and 1 MoE layer (256 experts, top 8, sigmoid router with its
-   bias) and no MTP (15,111,101,696 f32 parameters), serves 2 prompts of
-   1,024 tokens and 16 greedy tokens; it runs no TPU kernel (MLA's q/k
-   heads are wider than its v heads), and its eager decode must launch
-   the MoE expert kernel; instead of a plain path it is held to the
+   layers and 1 MoE layer (256 experts, top 8 within 4 of 8 groups,
+   sigmoid router with its bias, gates x 2.5; YaRN) and no MTP
+   (15,111,101,696 f32 parameters), serves 2 prompts of 1,024 tokens and
+   16 greedy tokens; its prefill launches B5 once a layer (MLA's q/k and
+   v heads zero-padded to head dim 256), and its eager decode must
+   launch the MoE expert kernel; instead of a plain path it is held to the
    reference's own invariant: on the same weights at capacity E/k
    (lossless), 1 prompt of 256 tokens, prefill plus 8 absorbed decode
    steps give the expanded form's full-forward logits over the prompt
@@ -560,8 +564,10 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     fused pass, B2 as query (c)'s histogram count, B3 as query (d)'s
     window max (one partition each), B4 as one heat refresh of 262,144
     tracked objects, B5 and B7 as one local-attention and one RG-LRU
-    layer of the [serve] prefill, B6 as one SSD layer of mamba2-130m
-    serving 16,000 prompt tokens.  Bytes and peaks, and B6's operations,
+    layer of the [serve] prefill (B5 also at every other served shape,
+    MLA's through ``mla.attend_kernel``), B6 as one SSD layer of
+    mamba2-130m serving 16,000 prompt tokens.  Bytes and peaks, and B6's
+    operations,
     are counted as the benchmark counts them (``sagebench/counts.py``).
     Each kernel's output is held once to its plain version's (``held``)
     at the limits of ``tests/test_torch_cuda.py``, which lists the
@@ -721,9 +727,11 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     # same values plus one bf16 rounding of |o|; the bound reads and writes 2-byte elements at the
     # bf16 tensor-core rate); the yardstick is SDPA's causal or unmasked
     # form over K/V expanded to every head, or at [serve]'s shape its
-    # window-causal boolean mask
-    served = [(name, False) for name in ATTN_SERVED if name != "serve"]
-    for name, bf16 in served + [(name, True) for name in ATTN_SERVED]:
+    # window-causal boolean mask; MLA's shape is timed on its own route
+    # below
+    others = [name for name in ATTN_SERVED if name != "mla"]
+    served = [(name, False) for name in others if name != "serve"]
+    for name, bf16 in served + [(name, True) for name in others]:
         b, h, kv, sq, sk, hd, causal, window, cap = ATTN_SERVED[name]
         q, k, v = attn_inputs(torch, gen, dev, b, h, kv, sq, sk, hd)
         if bf16:
@@ -766,6 +774,8 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
     # the bf16 kernel's row of the kernels line: whisper's encoder, where
     # [serve-bf16] spends most of its B5 time
     out["flash_attention_bf16"] = out["flash_attention@whisper-encoder@bf16"]
+    out["flash_attention@mla"] = mla_attention_timing(torch, gen, dev,
+                                                      ATTN_SERVED["mla"])
 
     b, s_, h, p, n, g, chunk, with_s0 = SSD_SERVED
     args = list(ssd_inputs(torch, gen, dev, b, s_, h, p, n, g, with_s0))
@@ -874,6 +884,46 @@ def phase_timing(torch, K, H, KA, KR, KS, col, dev):
             f"({r['bound_bytes']} B at {HBM_BYTES_PER_S:.3g} B/s = "
             f"{bytes_ms:.4f} ms{extra})")
     return out
+
+
+def mla_attention_timing(torch, gen, dev, shape):
+    """[timing] B5 as MLA's prefill takes it (``ATTN_SERVED["mla"]``):
+    deepseek-v3's q/k heads (nope 128 + rope 64) and v heads (128)
+    zero-padded to head dim 256 by ``mla.attend_kernel``, the padding's
+    copies in its time as on the main path, held to ``mla._attend_plain``
+    on the same inputs within 1e-4 of each row's max |o| (B5's limit).
+    The bound counts the model's widths (``sagebench/metrics/
+    mla_counts.py``, the yardstick of ``mla_attn_roofline.serve``), never
+    the padded ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mla
+    from sagebench.counts import PEAK_FLOPS
+    from sagebench.metrics.mla_counts import attention_bytes, attention_flops
+    b, h, _, s, _, hd, _, _, _ = shape
+    cfg = get_config(MLA_ARCH).scaled(dtype="float32")
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    widths = dict(n_heads=h, qk_nope_head_dim=dn, qk_rope_head_dim=dr,
+                  v_head_dim=dv, dtype="float32")
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    args = (r(b, s, h, dn), r(b, s, h, dr), r(b, s, h, dn), r(b, s, dr),
+            r(b, s, h, dv))
+    scale, pos = mla._scale(cfg), torch.arange(s, device=dev)
+    want = mla._attend_plain(*args, pos, cfg)
+    row = dict(
+        max_abs_err=held("flash_attention@mla", mla.attend_kernel(
+            *args, scale), want, 1e-4 * want.abs().amax(-1, keepdim=True)),
+        ms=device_ms(torch, lambda: mla.attend_kernel(*args, scale)),
+        plain_ms=device_ms(torch, lambda: mla._attend_plain(*args, pos,
+                                                             cfg)),
+        library_ms=None, bound_bytes=attention_bytes(widths, b, s),
+        bound_flops=attention_flops(widths, b, s),
+        flops_rate=PEAK_FLOPS["float32"],
+        shape=f"b={b} h={h} s={s} q/k {dn}+{dr} v {dv} padded to hd={hd}, "
+        f"causal, f32, YaRN scale {scale:.6g}; bound at the model's widths")
+    del args, want
+    return row
 
 
 def ssd_bwd_timing(torch, KS, gen, dev):
@@ -1700,16 +1750,16 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
     reference's ``serve.main`` draws them), ``gen`` greedy tokens.
     A model with cross layers gets both their gates set to
     ``VISION_GATE`` first (``set_cross_gates``).  The prefill must
-    launch B5 once per attention layer (twice per ``encdec`` layer, once
-    per encoder layer where the stack reads the encoder; none with MLA),
+    launch B5 once per attention or MLA layer (twice per ``encdec``
+    layer, once per encoder layer where the stack reads the encoder),
     B7 once per RG-LRU layer and B6 once per SSD layer, and no other;
     the token log must read back.  Whisper's encoder is then driven on
     its own (``encoder_check``).  Then the kernel path's logits must
     agree with the plain path's on the same weights (one copy on the
     card) at prefill and at every decode step fed the served tokens
     (``plain_path``); a bf16 model's blocks are also held one by one
-    (``layer_check``); a model that runs no kernel (MLA) is held to
-    ``mla_lossless_check`` instead.  Returns the launches of the kernels
+    (``layer_check``); an MLA model is held to ``mla_lossless_check``
+    instead.  Returns the launches of the kernels
     the model runs."""
     import numpy as np
     from repro_torch.core import FunctionShipper
@@ -1727,7 +1777,7 @@ def phase_serve(torch, ext, cfg, dev, *, tag="serve",
     encoder = cfg.n_encoder_layers if (cfg.is_encoder_decoder
                                        and reads_memory(cfg)) else 0
     want_launches = {
-        "flash_attention": 0 if cfg.use_mla else (
+        "flash_attention": (
             kinds.count("local") + kinds.count("global")
             + kinds.count("cross") + 2 * kinds.count("encdec") + encoder),
         "rglru_scan": kinds.count("rglru"), "ssd_scan": kinds.count("ssd")}

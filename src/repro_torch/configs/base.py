@@ -63,6 +63,18 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
     norm_topk_prob: bool = True      # renormalise the top-k gates to sum 1
     router_aux_coef: float = 0.001
+    # deepseek's group-limited routing (``noaux_tc``): the router's experts
+    # fall into n_group groups, each scored by the sum of its top-2 biased
+    # scores, and a token picks its top_k among the topk_group best groups
+    # (1, 1: no limit)
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0   # the routed gates' final scale
+    # the expert share (expert parallelism): the router scores
+    # router_experts experts (0 -> n_experts) and this layer holds the
+    # n_experts of them from first_expert on, computing only their part
+    router_experts: int = 0
+    first_expert: int = 0
 
     # --- MLA (deepseek) ---------------------------------------------------------
     use_mla: bool = False
@@ -71,6 +83,16 @@ class ModelConfig:
     qk_nope_head_dim: int = 0
     qk_rope_head_dim: int = 0
     v_head_dim: int = 0
+    # YaRN rotary scaling of MLA's rope heads (0 -> plain RoPE): the
+    # frequencies stretched by the factor beyond the original positions,
+    # blended between the correction range that beta_fast/beta_slow set,
+    # and the softmax scale times mscale(mscale_all_dim)^2
+    yarn_factor: float = 0.0
+    yarn_original_max_position: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
 
     # --- encoder-decoder (whisper) -----------------------------------------------
     is_encoder_decoder: bool = False
@@ -115,6 +137,12 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def n_router_experts(self) -> int:
+        """The experts the router scores (the whole layer's), of which
+        this configuration holds ``n_experts``."""
+        return self.router_experts or self.n_experts
 
     @property
     def pattern_period(self) -> int:

@@ -46,9 +46,11 @@ embeddings, drawn after the prompts from the same numpy generator (seed
 0), as the reference's ``main`` draws them: ``frames`` (batch,
 encoder_seq, d) and ``image_embeds`` (batch, n_image_tokens, d).  On the
 card (the default device) drop ``--device cpu``.  The benchmark
-(``sagebench/``) serves mamba2-130m and qwen2-moe-a2.7b at full width;
+(``sagebench/``) serves mamba2-130m and qwen2-moe-a2.7b at full width,
+and deepseek-v3-671b at its published widths on one card's share of an
+expert-parallel deployment (8 of 256 experts, 9 layers);
 ``chip_smoke.py``'s ``[serve*]`` phases serve the other models there, and
-those two at batch 4.
+mamba2 and qwen2-moe at batch 4.
 """
 from __future__ import annotations
 

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import math
 import threading
 from typing import Optional, Sequence, Tuple
 
@@ -194,16 +196,62 @@ def rope_frequencies(head_dim: int, theta: float, fraction: float = 1.0,
     return 1.0 / (theta ** exponent)       # (rot_dim // 2,)
 
 
+@functools.lru_cache(maxsize=8)
+def yarn_frequencies(dim: int, theta: float, factor: float, original: int,
+                     beta_fast: float, beta_slow: float,
+                     device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies (f32, ``dim // 2``): RoPE's, divided by
+    ``factor`` below the correction range that rotates ``beta_slow``
+    times over ``original`` positions, kept above the one that rotates
+    ``beta_fast`` times, and blended linearly between them (DeepSeek-V3's
+    ``precompute_freqs_cis``; arXiv:2309.00071).  Kept per arguments: a
+    decode step reads them twice a layer.  Callers must not write into
+    the tensor."""
+    inv = rope_frequencies(dim, theta, device=device)
+
+    def corr(rotations: float) -> float:
+        return dim * math.log(original / (rotations * 2 * math.pi)) / (
+            2 * math.log(theta))
+    low = max(math.floor(corr(beta_fast)), 0)
+    high = min(math.ceil(corr(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    smooth = 1 - ramp
+    return inv / factor * (1 - smooth) + inv * smooth
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature: 0.1 mscale ln(factor) + 1 (1 where
+    the positions are not stretched)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def rope_inv_freq(cfg, dim: int, device=None) -> torch.Tensor:
+    """The inverse frequencies of a configuration's rotated sub-dimension
+    of width ``dim``: YaRN's where ``cfg.yarn_factor`` is set, else
+    RoPE's."""
+    if cfg.yarn_factor:
+        return yarn_frequencies(dim, cfg.rope_theta, cfg.yarn_factor,
+                                cfg.yarn_original_max_position,
+                                cfg.yarn_beta_fast, cfg.yarn_beta_slow,
+                                device)
+    return rope_frequencies(dim, cfg.rope_theta, device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-               fraction: float = 1.0) -> torch.Tensor:
+               fraction: float = 1.0, *,
+               inv_freq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Apply rotary embedding (half-split rotation).
 
     x: (..., seq, heads, head_dim); positions: broadcastable to (..., seq).
     With fraction < 1 only the leading ``fraction`` of head_dim is rotated
-    (ChatGLM 2d-RoPE).
+    (ChatGLM 2d-RoPE).  ``inv_freq`` replaces RoPE's frequencies (YaRN's).
     """
     head_dim = x.shape[-1]
-    inv_freq = rope_frequencies(head_dim, theta, fraction, x.device)
+    if inv_freq is None:
+        inv_freq = rope_frequencies(head_dim, theta, fraction, x.device)
     rot_dim = inv_freq.shape[0] * 2
     x_rot, x_pass = x[..., :rot_dim], x[..., rot_dim:]
 

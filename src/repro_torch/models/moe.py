@@ -32,12 +32,28 @@ with the aux-loss-free bias (deepseek-v3: the bias changes only which
 experts are selected; the gates are the raw sigmoid scores).  The
 selected gates are renormalised to sum to one unless the configuration
 sets ``norm_topk_prob`` false (Qwen1.5-MoE publishes false; the
-reference always renormalises).
+reference always renormalises), then scaled by
+``routed_scaling_factor``.  Where ``n_group`` > 1 the selection is
+group-limited, as DeepSeek-V3's ``noaux_tc`` gate: the router's experts
+fall into ``n_group`` equal groups, each scored by the sum of its two
+highest selection scores, and a token picks its top k among the
+``topk_group`` best groups only.
+
+**The expert share.**  A layer may hold only some of the experts its
+router scores, as one rank of expert parallelism does: it routes every
+token over all ``n_router_experts`` and holds the ``n_experts`` from
+``first_expert`` on.  The capacity is the whole layer's (C from the
+router's width), and the dispatch, the products and the combine cover
+the held experts only: the layer returns its own experts' part of the
+routed result (what the absent experts add is left out; no exchange
+stands in for them), plus the shared experts, which every rank computes
+alike.  A layer that holds every expert is the whole layer.
 
 Each ``moe_block`` call is a ``moe.block`` span of ``repro_torch.trace``
 and its expert products a ``moe.experts`` span, both timed by CUDA
 events on the card while tracing is on (not inside a CUDA graph's
-capture); it counts ``moe.assignments_routed`` (tokens x k) and
+capture); it counts ``moe.assignments_routed`` (the assignments of
+tokens to the held experts: tokens x k where every expert is held) and
 ``moe.assignments_dropped`` (those over an expert's capacity) with
 ``trace.count_device``, on the device, so a graphed decode step counts
 too and nothing waits for the count; a single-token call also counts
@@ -74,14 +90,14 @@ def init_moe(gen, cfg: ModelConfig, dtype=torch.float32,
     d, e, f = cfg.d_model, cfg.n_experts, cfg.d_expert
     kw = dict(dtype=dtype, device=device)
     p = {
-        "router": dense_init(gen, (d, e), device=device),
+        "router": dense_init(gen, (d, cfg.n_router_experts), device=device),
         "w_gate": dense_init(gen, (e, d, f), in_axis=1, **kw),
         "w_up": dense_init(gen, (e, d, f), in_axis=1, **kw),
         "w_down": dense_init(gen, (e, f, d), in_axis=1, **kw),
     }
     if cfg.router_aux_free_bias:
-        p["router_bias"] = torch.zeros((e,), dtype=torch.float32,
-                                       device=device)
+        p["router_bias"] = torch.zeros((cfg.n_router_experts,),
+                                       dtype=torch.float32, device=device)
     if cfg.n_shared_experts:
         fs = cfg.d_shared_expert
         p["ws_gate"] = dense_init(gen, (d, fs), **kw)
@@ -94,7 +110,8 @@ def init_moe(gen, cfg: ModelConfig, dtype=torch.float32,
 
 def router_scores(p: Dict, x: torch.Tensor, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (gates (..., E) f32, selection scores (..., E), logits)."""
+    """-> (gates (..., E) f32, selection scores (..., E), logits) over the
+    router's E experts."""
     logits = torch.matmul(x.float(), p["router"])
     if cfg.router_type == "sigmoid":
         gates = torch.sigmoid(logits)
@@ -103,6 +120,27 @@ def router_scores(p: Dict, x: torch.Tensor, cfg: ModelConfig
         gates = torch.softmax(logits, dim=-1)
         sel = gates
     return gates, sel, logits
+
+
+def group_limited(sel: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The selection scores (..., E) with every expert outside the token's
+    ``topk_group`` best groups at -inf (``noaux_tc``): the E experts fall
+    into ``n_group`` groups of consecutive ids, each scored by the sum of
+    its two highest scores (equal group scores to the lower group).  The
+    scores themselves where ``n_group`` is 1."""
+    g = cfg.n_group
+    if g <= 1:
+        return sel
+    e = sel.shape[-1]
+    if e % g or not 1 <= cfg.topk_group <= g:
+        raise ValueError(f"{cfg.name}: {e} experts do not fall into "
+                         f"{g} groups of which {cfg.topk_group} are kept")
+    grouped = sel.reshape(*sel.shape[:-1], g, e // g)
+    top2 = torch.sort(grouped.detach(), dim=-1, descending=True).values
+    score = top2[..., :2].sum(-1)                           # (..., g)
+    keep = _mask_of(topk_indices(score, cfg.topk_group), score)
+    return torch.where(keep[..., None], grouped, float("-inf")).reshape(
+        sel.shape)
 
 
 def topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -141,10 +179,29 @@ def _normalized_gates(gates: torch.Tensor, mask: torch.Tensor
 def _selected_gates(gates: torch.Tensor, mask: torch.Tensor,
                     cfg: ModelConfig) -> torch.Tensor:
     """The gates of the selected experts (0 elsewhere), renormalised to
-    sum to one where ``cfg.norm_topk_prob``."""
+    sum to one where ``cfg.norm_topk_prob``, times
+    ``cfg.routed_scaling_factor``."""
     if cfg.norm_topk_prob:
-        return _normalized_gates(gates, mask)
-    return torch.where(mask, gates, 0.0)
+        out = _normalized_gates(gates, mask)
+    else:
+        out = torch.where(mask, gates, 0.0)
+    if cfg.routed_scaling_factor != 1.0:
+        out = out * cfg.routed_scaling_factor
+    return out
+
+
+def _select(sel: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (each token's top-k experts (..., k), largest selection score
+    first, of the groups it may pick from; their mask (..., E))."""
+    top = topk_indices(group_limited(sel, cfg), cfg.top_k)
+    return top, _mask_of(top, sel)
+
+
+def _held(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The held experts' columns (..., n_experts) of a (..., E) tensor
+    over the router's experts."""
+    return t[..., cfg.first_expert:cfg.first_expert + cfg.n_experts]
 
 
 def _shard_dispatch(t: torch.Tensor) -> torch.Tensor:
@@ -162,10 +219,11 @@ def _shard_dispatch(t: torch.Tensor) -> torch.Tensor:
 
 
 def capacity(cfg: ModelConfig, group_size: int) -> int:
-    """Slots per (group, expert): round(gs k cf / E), at least 1 and at
-    most the group (Python's round, ties to even, as the reference)."""
+    """Slots per (group, expert): round(gs k cf / E) over the router's E
+    experts, at least 1 and at most the group (Python's round, ties to
+    even, as the reference)."""
     cap = int(max(1, round(group_size * cfg.top_k * cfg.moe_capacity_factor
-                           / cfg.n_experts)))
+                           / cfg.n_router_experts)))
     return min(cap, group_size)
 
 
@@ -174,25 +232,34 @@ def capacity(cfg: ModelConfig, group_size: int) -> int:
 # --------------------------------------------------------------------------
 
 def _route(p: Dict, xg: torch.Tensor, cfg: ModelConfig, cap: int):
-    """Router, top-k and the per-expert top-``cap`` token choice.
-    xg: (G, S, d) -> (tok_idx (G, E, C), weight (G, E, C) f32 with 0 in
-    empty slots, experts (G, S, k) ascending, slot (G, S, k): the slot of
-    each of them, -1 where the token was dropped, aux loss)."""
+    """Router over all E experts, top-k and, for each of the n held
+    experts, its top-``cap`` token choice.  xg: (G, S, d) -> (tok_idx
+    (G, n, C), weight (G, n, C) f32 with 0 in empty slots, experts (G, S,
+    k): each token's experts ascending, by the router's ids, slot (G, S,
+    k): the slot of each of them, -1 where the token was dropped, -2
+    where the expert is not held, aux loss)."""
     gates, sel, _ = router_scores(p, xg, cfg)               # (G, S, E)
-    top = topk_indices(sel, cfg.top_k)                     # (G, S, k)
-    mask = _mask_of(top, sel)
+    top, mask = _select(sel, cfg)                           # (G, S, k)
     aux = load_balance_loss(gates, mask, cfg.top_k)
-    gates_n = _selected_gates(gates, mask, cfg)
+    gates_n = _held(_selected_gates(gates, mask, cfg), cfg)
+    mask, sel = _held(mask, cfg), _held(sel, cfg)           # (G, S, n)
 
     prio = torch.where(mask, sel.detach(), float("-inf")).transpose(1, 2)
-    tok_idx = topk_indices(prio, cap)                      # (G, E, C)
+    tok_idx = topk_indices(prio, cap)                      # (G, n, C)
     slot_valid = mask.transpose(1, 2).gather(2, tok_idx)
     weight = gates_n.transpose(1, 2).gather(2, tok_idx) * slot_valid
 
-    # each token's slot in each expert it chose (-1: over capacity)
+    # each token's slot in each of the router's experts (-1: over
+    # capacity, -2: not held; a layer that holds every expert fills no
+    # -2, and an empty fill launches nothing)
+    g, n, s = prio.shape
+    e, first = cfg.n_router_experts, cfg.first_expert
     slots = torch.arange(cap, device=xg.device).expand_as(tok_idx)
-    pos = torch.full(prio.shape, -1, dtype=torch.long, device=xg.device)
-    pos.scatter_(2, tok_idx, torch.where(slot_valid, slots, -1))
+    pos = torch.full((g, e, s), -1, dtype=torch.long, device=xg.device)
+    pos.narrow(1, 0, first).fill_(-2)
+    pos.narrow(1, first + n, e - first - n).fill_(-2)
+    pos.narrow(1, first, n).scatter_(
+        2, tok_idx, torch.where(slot_valid, slots, -1))
     experts = top.sort(dim=-1).values
     slot = pos.transpose(1, 2).gather(2, experts)
     return tok_idx, weight, experts, slot, aux
@@ -352,19 +419,24 @@ def _single_token_experts(p: Dict, xd: torch.Tensor, weight: torch.Tensor,
 
 
 def _combine(yd: torch.Tensor, experts: torch.Tensor, slot: torch.Tensor,
-             cap: int) -> torch.Tensor:
+             cap: int, first: int) -> torch.Tensor:
     """Sum each token's kept expert outputs in ascending expert order.
-    yd: (E, G*C, d) weighted; experts, slot: (G, S, k) -> (G, S, d)."""
-    return on_replicas(lambda *a: _combine_local(*a, cap), yd, experts, slot)
+    yd: (n, G*C, d) weighted over the n held experts, the router's
+    experts ``first`` on; experts, slot: (G, S, k) -> (G, S, d)."""
+    return on_replicas(lambda *a: _combine_local(*a, cap, first), yd,
+                       experts, slot)
 
 
 def _combine_local(yd: torch.Tensor, experts: torch.Tensor,
-                   slot: torch.Tensor, cap: int) -> torch.Tensor:
+                   slot: torch.Tensor, cap: int, first: int) -> torch.Tensor:
     g, s, k = experts.shape
-    gi = torch.arange(g, device=yd.device)[:, None, None]
-    row = (experts * g + gi) * cap + slot.clamp_min(0)      # (G, S, k)
+    # expert e's rows start at (e - first) G C: the shift rides on gi
+    gi = torch.arange(-first * g, (1 - first) * g,
+                      device=yd.device)[:, None, None]
+    kept = slot >= 0              # not kept: dropped (-1), not held (-2)
+    row = torch.where(kept, (experts * g + gi) * cap + slot, 0)
     picked = yd.reshape(-1, yd.shape[-1])[row]              # (G, S, k, d)
-    picked = torch.where((slot >= 0)[..., None], picked, 0.0)
+    picked = torch.where(kept[..., None], picked, 0.0)
     out = picked[:, :, 0]
     for j in range(1, k):
         out = out + picked[:, :, j]
@@ -384,13 +456,18 @@ def _shared_experts(p: Dict, x: torch.Tensor, cfg: ModelConfig
     return ys
 
 
-def _count_routes(slot: torch.Tensor):
-    """Count the call's assignments and those dropped over capacity
-    (``slot`` -1), on the device; a ``DTensor`` (a mesh) is not counted."""
+def _count_routes(slot: torch.Tensor, cfg: ModelConfig):
+    """Count the call's assignments to held experts (``slot`` -1 or
+    more) and those of them dropped over capacity (-1), on the device; a
+    ``DTensor`` (a mesh) is not counted.  Where the layer holds every
+    expert, every assignment is to a held one: the host has that count,
+    which keeps two launches a layer out of a graphed decode step."""
     if type(slot) is not torch.Tensor:
         return
-    trace.count_device("moe.assignments_routed", slot.numel(), slot.device)
-    trace.count_device("moe.assignments_dropped", (slot < 0).sum(),
+    routed = (slot.numel() if cfg.n_experts == cfg.n_router_experts
+              else (slot >= -1).sum())
+    trace.count_device("moe.assignments_routed", routed, slot.device)
+    trace.count_device("moe.assignments_dropped", (slot == -1).sum(),
                        slot.device)
 
 
@@ -406,14 +483,15 @@ def moe_block(p: Dict, x: torch.Tensor, cfg: ModelConfig
         tok_idx, weight, experts, slot, aux = on_replicas(
             lambda xg, *w: _route(dict(zip(names, w)), xg, cfg, cap),
             xg, *(p[k] for k in names))
-        _count_routes(slot)
+        _count_routes(slot, cfg)
         with trace.span("moe.experts", device=True):
             xd = _dispatch(xg, tok_idx)
             yd = (_single_token_experts(p, xd, weight, cfg, b) if s == 1
                   else _expert_ffn(p, xd, cfg))
         yd = yd * weight.transpose(0, 1).reshape(
             yd.shape[0], -1, 1).to(x.dtype)
-        out = _combine(yd, experts, slot, cap).reshape(b, s, d)
+        out = _combine(yd, experts, slot, cap,
+                       cfg.first_expert).reshape(b, s, d)
         if cfg.n_shared_experts:
             out = out + _shared_experts(p, x, cfg)
         return out, aux
@@ -429,9 +507,9 @@ def moe_block_dense(p: Dict, x: torch.Tensor, cfg: ModelConfig
     b, s, d = x.shape
     xt = x.reshape(-1, d)
     gates, sel, _ = router_scores(p, xt, cfg)
-    mask = _topk_mask(sel, cfg.top_k)
+    _, mask = _select(sel, cfg)
     aux = load_balance_loss(gates, mask, cfg.top_k)
-    gates_n = _selected_gates(gates, mask, cfg)
+    gates_n = _held(_selected_gates(gates, mask, cfg), cfg)
 
     act = activation(cfg.act)
     dt = x.dtype
@@ -448,7 +526,7 @@ def expert_load(p: Dict, x: torch.Tensor, cfg: ModelConfig
                 ) -> torch.Tensor:
     """Fraction of tokens routed to each expert (for the bias update)."""
     _, sel, _ = router_scores(p, x.reshape(-1, x.shape[-1]), cfg)
-    return _topk_mask(sel, cfg.top_k).float().mean(dim=0)
+    return _select(sel, cfg)[1].float().mean(dim=0)
 
 
 def update_router_bias(bias: torch.Tensor, load: torch.Tensor,

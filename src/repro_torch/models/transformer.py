@@ -186,7 +186,8 @@ def block_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     the cache.
     ``use_kernels`` picks B5/B6/B7 for the attention and scans of train
     and prefill (on the card they carry their gradients:
-    ``kernels.grad``); decode and MLA run plain torch either way.
+    ``kernels.grad``) and B5 for MLA's prefill; decode and MLA's train
+    run plain torch either way.
     ``moe_dense_oracle`` runs a MoE layer as ``moe.moe_block_dense``."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown block mode {mode!r}")
@@ -200,7 +201,7 @@ def block_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
             mix = mla.mla_attention(p["mixer"], h, positions, cfg)
         elif mode == "prefill":
             mix, new_cache = mla.mla_prefill(p["mixer"], h, positions, cfg,
-                                             cache)
+                                             cache, use_kernels=use_kernels)
         else:
             mix, new_cache = mla.mla_decode(p["mixer"], h, position, cfg,
                                             cache)

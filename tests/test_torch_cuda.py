@@ -405,7 +405,10 @@ def test_heat_scores_on_cuda_equal_cpu(dev):
 # attention ([serve]), qwen2-moe-a2.7b's prefill (MHA, hd 128, causal),
 # whisper-large-v3's encoder over 1,500 frames, its decoder and the
 # encdec cross attention no config reaches, llama-3.2-vision's GQA self
-# and cross attention, qwen2.5-32b's training step ([dist])
+# and cross attention, qwen2.5-32b's training step ([dist]), and
+# deepseek-v3's MLA prefill at the deepseek-v3-longqa cell's median
+# prompt (q/k heads 128 + 64 and v heads 128 zero-padded to hd 256 by
+# ``mla.attend_kernel``, which [timing] times there)
 ATTN_SERVED = {
     "serve": (4, 16, 1, 4000, 4000, 256, True, 2048, 0.0),
     "qwen2-moe": (4, 16, 16, 4000, 4000, 128, True, 0, 0.0),
@@ -415,6 +418,7 @@ ATTN_SERVED = {
     "vision-self": (4, 64, 8, 1024, 1024, 128, True, 0, 0.0),
     "vision-cross": (4, 64, 8, 1024, 1601, 128, False, 0, 0.0),
     "qwen2.5-train": (2, 40, 8, 2048, 2048, 128, True, 0, 0.0),
+    "mla": (1, 128, 128, 4096, 4096, 256, True, 0, 0.0),
 }
 ATTN_CASES = [*ATTN_SERVED.values(),
               (1, 4, 4, 333, 333, 64, True, 0, 0.0),
@@ -1205,6 +1209,86 @@ def test_moe_block_on_cuda_matches_cpu(dev, arch, b, s):
                     moe._route(p, x.reshape(g, gs, -1), cfg, cap)):
         if a.dtype == torch.long:
             assert torch.equal(a.cpu(), c)
+
+
+def test_moe_group_limited_share_on_cuda_matches_cpu(dev):
+    """DeepSeek-V3's published router (4 of 8 groups, gates x 2.5) on a
+    share of 4 of the router's 32 experts, prefill and a single-token
+    step, on the card as on the CPU."""
+    from repro_torch.models import moe
+    cfg, p = _moe_case("deepseek-v3-671b", n_experts=32, top_k=8,
+                       n_group=8, topk_group=4, routed_scaling_factor=2.5)
+    share = cfg.scaled(n_experts=4, router_experts=32, first_expert=12)
+    part = {k: (v[12:16] if k in ("w_gate", "w_up", "w_down") else v)
+            for k, v in p.items()}
+    for b, s in ((2, 37), (4, 1)):
+        x = torch.from_numpy(np.random.default_rng(b * s).standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32))
+        want, _ = moe.moe_block(part, x, share)
+        got, _ = moe.moe_block({k: v.to(dev) for k, v in part.items()},
+                               x.to(dev), share)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-4, rtol=1e-4)
+
+
+# MLA's prefill attention through B5's padded route at DeepSeek-V3's
+# widths (128 heads, q/k 128 + 64, v 128) up to the longqa cell's longest
+# prompt, against the plain attention (chunked from 8,192 tokens): within
+# 1e-4 of each (query, head) row's largest |o|, B5's limit, up to 4,096
+# keys and in proportion to the keys beyond: B5's split-TF32 online
+# softmax departs from an f64 computation by 6.4e-05, 1.19e-04 and
+# 2.43e-04 of the row's largest |o| at 4,096, 8,192 and 16,384 keys, the
+# plain f32 path by 7.7-8.5e-06 at each (H100, 700 W)
+@pytest.mark.parametrize("s", [1, 333, 4096, 16384])
+def test_mla_prefill_through_b5_matches_plain_attention(dev, s):
+    from repro_torch import _ext
+    from repro_torch.configs import get_config
+    from repro_torch.models import mla
+    cfg = get_config("deepseek-v3-671b").scaled(dtype="float32")
+    g = torch.Generator(device=dev)
+    g.manual_seed(s)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    h = cfg.n_heads
+    qn, qp = rand(1, s, h, 128), rand(1, s, h, 64)
+    kn, kp, v = rand(1, s, h, 128), rand(1, s, 64), rand(1, s, h, 128)
+    before = _ext.LAUNCHES["flash_attention"]
+    got = mla.attend_kernel(qn, qp, kn, kp, v, mla._scale(cfg))
+    assert _ext.LAUNCHES["flash_attention"] == before + 1
+    want = mla._attend_plain(qn, qp, kn, kp, v, torch.arange(s, device=dev),
+                             cfg)
+    err = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    assert got.shape == (1, s, h, 128)
+    assert float(err.max()) <= 1e-4 * max(1.0, s / 4096)
+
+
+def test_mla_prefill_on_cuda_takes_b5_and_matches_cpu(dev):
+    """A prefill of the smoke model's MLA on the card takes B5 (counted)
+    and fills the same latent cache as the CPU's plain path."""
+    from repro_torch import trace
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import mla
+    cfg = get_smoke_config("deepseek-v3-671b").scaled(
+        dtype="float32", yarn_factor=40.0, yarn_original_max_position=16,
+        yarn_mscale_all_dim=1.0)
+    p = mla.init_mla(torch.Generator().manual_seed(0), cfg,
+                     device=torch.device("cpu"))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 50, cfg.d_model)).astype(np.float32))
+    pos = torch.arange(50)[None].expand(2, 50)
+    c = mla.init_mla_cache(cfg, 2, 64, torch.float32, torch.device("cpu"))
+    want, c = mla.mla_prefill(p, x, pos, cfg, c)
+    cd = mla.init_mla_cache(cfg, 2, 64, torch.float32, dev)
+    with trace.unit("test.mla") as u:
+        got, cd = mla.mla_prefill({k: v.to(dev) for k, v in p.items()},
+                                  x.to(dev), pos.to(dev), cfg, cd)
+    assert u.counts.get("mla.prefill_kernel_layers") == 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    for k in ("ckv", "kpe"):
+        np.testing.assert_allclose(cd[k].cpu().numpy(), c[k].numpy(),
+                                   atol=1e-5, rtol=1e-5)
 
 
 def test_moe_ties_on_cuda_go_to_the_lower_index(dev):
